@@ -1,7 +1,7 @@
-"""graphik_tpu: a TPU-native distance-geometric inverse-kinematics framework.
+"""graphik_tpu: a batched distance-geometric inverse-kinematics framework.
 
 Reimplements the capabilities of GraphIK (utiasSTARS/GraphIK) as a
-JAX/XLA/Pallas framework designed for TPU hardware:
+JAX/XLA/Pallas framework that runs on NVIDIA GPUs:
 
 - robots are compiled host-side into static array "templates"
   (:mod:`graphik_tpu.robots`),

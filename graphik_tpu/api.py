@@ -1,4 +1,4 @@
-"""High-level IK API: the TPU-native equivalent of `solve_with_riemannian`.
+"""High-level IK API: the batched equivalent of `solve_with_riemannian`.
 
 Reference flow (riemannian_solver.py:220-234):
     graph.from_pose -> distance/adjacency matrices -> bound_smoothing ->
@@ -34,10 +34,10 @@ def pose_error(structure: ProblemStructure, q, T_goal):
     error is the translation norm; rotation error is the norm of the
     rotation part of log(T_goal T_sol^-1).
 
-    Runs at HIGHEST matmul precision regardless of caller scope: at TPU's
-    default bf16 passes the FK chain and the R_goal R_sol^T product carry
-    ~1e-2 relative noise, turning a converged mm-accurate solution into an
-    apparent cm-level failure.
+    Runs at HIGHEST matmul precision regardless of caller scope: float32
+    matmuls may otherwise run in TF32 (~3 decimal digits), where the FK
+    chain and the R_goal R_sol^T product carry ~1e-3 relative noise,
+    turning a converged mm-accurate solution into an apparent failure.
     """
     with jax.default_matmul_precision("highest"):
         return _pose_error_impl(structure, q, T_goal)
@@ -99,8 +99,9 @@ def solve_ik(
       q (..., n), Y (..., N, dim), cost, gradnorm, iterations,
       e_pos, e_rot, limit_violation, success (limits ok).
     """
-    # TPU: f32 matmuls default to bf16 passes; distance-geometry optimization
-    # needs true f32 accumulation. Scoped so library users are unaffected.
+    # float32 matmuls may run in TF32 unless HIGHEST is asked for;
+    # distance-geometry optimization needs true f32 accumulation. Scoped so
+    # library users are unaffected.
     with jax.default_matmul_precision("highest"):
         return _solve_ik_impl(
             structure, T_goal, params, use_limits, Y_init, dtype, limit_tol,
@@ -236,11 +237,11 @@ def polish_solution(
     Returns (q, e_pos, e_rot, max_viol, limits_ok) with per-instance
     selection between the input and polished solutions.
     """
-    # Pin f32 matmul passes: callers outside a highest-precision scope
-    # (e.g. a bare jit around a CIDGIK finish stage) would otherwise run
-    # the FK/validation matmuls at bf16, where the distance-limit check
-    # misclassifies ~6% of perfectly feasible solutions as violating (by
-    # ~1e-3 - pure bf16 FK noise; exact in f64).
+    # Pin f32 matmul precision: callers outside a highest-precision scope
+    # (e.g. a bare jit around a CIDGIK finish stage) could otherwise run
+    # the FK/validation matmuls in reduced precision (TF32), where the
+    # distance-limit check misclassifies feasible solutions as violating
+    # by ~1e-3 of pure FK noise (exact in f64).
     with jax.default_matmul_precision("highest"):
         pp = params or LocalParams(maxiter=30, tol_grad=1e-8)
         pol = local_solver.solve_local(structure, T_goal, q, pp)
@@ -281,15 +282,17 @@ def make_solver(
     polish: bool = True,
     polish_params: Optional[LocalParams] = None,
     smooth_iters: Optional[int] = None,
+    init_method: str = riemannian.DEFAULT_INIT,
 ):
     """Stage-jitted solver: same result as solve_ik_jit, far cheaper compile.
 
     XLA compile time for the monolithic pipeline program is superlinear in
-    program size (the round-1 bench spent ~12 min compiling what the
-    individual stages compile in ~15 s), so the pipeline is jitted as three
+    program size (it once took minutes where the individual stages compile
+    in seconds), so the pipeline is jitted as three
     stages - (instance+init), solve, (recover+validate+polish) - chained on
     the host. Stage boundaries carry batched device arrays; the host
-    round-trips are dispatch-only (no transfers).
+    round-trips are dispatch-only (no transfers). The jitted stages are
+    exposed as `solver.stages` (prepare, solve, finish) for profiling.
     """
     omega_np, psi_L, psi_U = structure.masks()
     dim = structure.dim
@@ -308,7 +311,8 @@ def make_solver(
                 smooth_iters=smooth_iters,
             )
             Y0 = riemannian.generate_initialization(
-                inst["lb"], inst["ub"], jnp.asarray(omega_prep), dim
+                inst["lb"], inst["ub"], jnp.asarray(omega_prep), dim,
+                method=init_method,
             )
             return inst["D_goal"], Y0
 
@@ -352,6 +356,9 @@ def make_solver(
         Tg = T_goal.astype(sol["Y"].dtype)
         return stage_finish(sol["Y"], Tg, sol)
 
+    solver.stages = {
+        "prepare": stage_prepare, "solve": stage_solve, "finish": stage_finish,
+    }
     return solver
 
 

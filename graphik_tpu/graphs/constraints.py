@@ -3,7 +3,7 @@
 The reference builds sympy equations over per-node symbols
 (/root/reference/graphik/solvers/constraints.py:75-181) for its legacy
 SOS/symbolic tooling. sympy expressions don't compose with jit/vmap/grad, so
-the TPU-native equivalent generates *callables over the position matrix*:
+the JAX equivalent generates *callables over the position matrix*:
 each constraint is a residual function pos (..., N, dim) -> (...,) that is
 zero (equalities) or nonnegative (satisfied inequalities) - directly usable
 as penalty terms, SDP verification oracles, or autodiff targets.

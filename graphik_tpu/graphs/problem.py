@@ -219,7 +219,7 @@ class ProblemStructure:
 
         The reference keeps obstacles as graph NODES pinned by exact-distance
         edges to every positioned node (graph_base.py:182-211), so the
-        optimizer re-derives 100 known positions per solve. TPU-first design:
+        optimizer re-derives 100 known positions per solve. Batched design:
         obstacle positions are compile-time constants, so each obstacle
         bound-edge becomes an *anchored hinge term* against a constant point
         and the variable set shrinks back to the robot subgraph
@@ -467,8 +467,8 @@ class ProblemStructure:
         last relative translation is along z (graph_revolute.py:313-316).
 
         HIGHEST matmul precision regardless of caller scope: the per-joint
-        frame accumulation is a matmul chain whose bf16 default on TPU
-        injects ~1e-2 relative angle noise.
+        frame accumulation is a matmul chain that, with float32 matmuls in
+        TF32, injects ~1e-3 relative angle noise.
         """
         with jax.default_matmul_precision("highest"):
             if self.dim == 3:

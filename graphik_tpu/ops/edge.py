@@ -1,10 +1,10 @@
 """Edge-list (incidence-matrix) formulation of the EDM-completion cost.
 
-TPU-native counterpart of the reference's numba edge kernels
+Counterpart of the reference's numba edge kernels
 (reference: graphik/solvers/costs.py:7-207): instead of iterating Python
 tuples of indices, the active edge set is compiled once into a signed
 incidence matrix C in {-1, 0, +1}^{E x N} so that every cost/grad/hvp
-evaluation becomes a pair of small matmuls that XLA tiles onto the MXU:
+evaluation becomes a pair of small matmuls:
 
     diff  = C Y            (E, d)   edge difference vectors
     dist  = ||diff||^2     (E,)     squared edge lengths
@@ -13,11 +13,9 @@ evaluation becomes a pair of small matmuls that XLA tiles onto the MXU:
 Backends sharing this compiled form:
   * pure-JAX functions (work under jit/vmap on any platform) - the
     TRParams(backend="edge") solver path;
-  * per-op fused Pallas kernels below (cost+grad, Hessian-vector) - kept as
-    building blocks / parity oracles;
-  * the production hot path is ops/tr_pallas.py, which fuses the ENTIRE
-    trust-region solve (outer loop + tCG) into one Pallas kernel over this
-    same EdgeProblem form - TRParams(backend="pallas"), the default.
+  * ops/tr_pallas.py, which fuses the ENTIRE trust-region solve (outer
+    loop + tCG) into one Pallas kernel over this same EdgeProblem form -
+    TRParams(backend="pallas").
 
 Parity oracles: graphik_tpu.solvers.costs (dense masked path) and
 graphik_tpu.native (C++ f64 kernels).
@@ -26,15 +24,9 @@ graphik_tpu.native (C++ f64 kernels).
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
-from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-
-_LANE = 128  # TPU lane width; batch tiles are multiples of this.
-_SUBLANE = 8  # f32 sublane; edge count pads to a multiple of this.
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # identity hash: jit-static arg
@@ -43,22 +35,16 @@ class EdgeProblem:
 
     Arrays are numpy (host, trace-time constants):
       ei, ej        (E,) int32 upper-triangular edge endpoints
-      C             (Ep, N) signed incidence (+1 at ei, -1 at ej), zero-padded
-      omega, psi_L, psi_U, L_mask, U_mask   (Ep,) per-edge parameters
+      C             (E, N) signed incidence (+1 at ei, -1 at ej)
+      omega, psi_L, psi_U, L_mask, U_mask   (E,) per-edge parameters
 
     Anchored hinge terms (node vs CONSTANT point - the obstacle reduction,
     graphs/problem.reduced_spec): zero-length arrays when absent.
-      aP                       (Ap, N) one-hot node selection
-      acenters                 (Ap, dim) constant anchor points
-      apsi_L, apsi_U, aL_mask, aU_mask  (Ap,) squared hinge bounds/masks
+      aP                       (A, N) one-hot node selection
+      acenters                 (A, dim) constant anchor points
+      apsi_L, apsi_U, aL_mask, aU_mask  (A,) squared hinge bounds/masks
 
-    Grid layout (set whenever anchors exist): rows are grouped node-major -
-    group g holds the a_R rows of distinct node g (padding rows have zero
-    masks and an all-zero aP row), so Ap = a_nsel * a_R. The TR Pallas
-    kernel exploits this to replace the (Ap, N) one-hot matmuls (which
-    dominate obstacle-rich scenes: a table is ~600 anchor rows vs ~64
-    edges) with a tiny (a_nsel, N) selection, a sublane broadcast, and a
-    block row-sum. aPsel is the (pad8(a_nsel), N) distinct-node one-hot.
+    Any padding a kernel needs is the kernel's own (ops/tr_pallas.py).
     """
 
     ei: np.ndarray
@@ -79,30 +65,18 @@ class EdgeProblem:
     apsi_U: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0))
     aL_mask: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0))
     aU_mask: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(0))
-    a_nsel: int = 0  # distinct anchored nodes (grid rows = a_nsel * a_R)
-    a_R: int = 0  # padded per-node block height (multiple of _SUBLANE)
-    aPsel: np.ndarray = dataclasses.field(
-        default_factory=lambda: np.zeros((0, 0)))
 
     @property
     def E(self) -> int:
         return len(self.ei)
 
     @property
-    def Ep(self) -> int:
-        return self.C.shape[0]
-
-    @property
     def A(self) -> int:
         return self.aP.shape[0]
 
     def edge_values(self, M) -> jnp.ndarray:
-        """Gather per-edge values from a dense (..., N, N) matrix, padded."""
-        vals = jnp.asarray(M)[..., self.ei, self.ej]
-        pad = self.Ep - self.E
-        if pad:
-            vals = jnp.pad(vals, [(0, 0)] * (vals.ndim - 1) + [(0, pad)])
-        return vals
+        """Gather per-edge values from a dense (..., N, N) matrix."""
+        return jnp.asarray(M)[..., self.ei, self.ej]
 
 
 def build_edge_problem(omega, psi_L, psi_U, L_mask=None, U_mask=None,
@@ -129,16 +103,13 @@ def build_edge_problem(omega, psi_L, psi_U, L_mask=None, U_mask=None,
     ei = iu[0][keep].astype(np.int32)
     ej = iu[1][keep].astype(np.int32)
     E = len(ei)
-    Ep = max(_SUBLANE, -(-E // _SUBLANE) * _SUBLANE)
 
-    C = np.zeros((Ep, N), np.float64)
+    C = np.zeros((E, N), np.float64)
     C[np.arange(E), ei] = 1.0
     C[np.arange(E), ej] = -1.0
 
     def sel(M):
-        out = np.zeros(Ep, np.float64)
-        out[:E] = np.asarray(M, np.float64)[ei, ej]
-        return out
+        return np.asarray(M, np.float64)[ei, ej]
 
     akw = {}
     if anchors is not None and len(anchors["idx"]):
@@ -147,31 +118,12 @@ def build_edge_problem(omega, psi_L, psi_U, L_mask=None, U_mask=None,
         vals = {k: np.asarray(anchors[k], np.float64)
                 for k in ("psi_L", "psi_U", "L_mask", "U_mask")}
 
-        # Node-major grid: one padded row-block per distinct anchored node.
-        sel_nodes = np.unique(idx)
-        n_sel = len(sel_nodes)
-        max_cnt = max(int((idx == u).sum()) for u in sel_nodes)
-        R = max(_SUBLANE, -(-max_cnt // _SUBLANE) * _SUBLANE)
-        Ap = n_sel * R
-        P = np.zeros((Ap, N), np.float64)
-        cen = np.zeros((Ap, dim), np.float64)
-        pads = {k: np.zeros(Ap, np.float64) for k in vals}
-        for g, u in enumerate(sel_nodes):
-            rows = np.nonzero(idx == u)[0]
-            dst = g * R + np.arange(len(rows))
-            P[dst, u] = 1.0
-            cen[dst] = centers[rows]
-            for k in vals:
-                pads[k][dst] = vals[k][rows]
-        n_sel_p = max(_SUBLANE, -(-n_sel // _SUBLANE) * _SUBLANE)
-        Psel = np.zeros((n_sel_p, N), np.float64)
-        Psel[np.arange(n_sel), sel_nodes] = 1.0
-
+        P = np.zeros((len(idx), N), np.float64)
+        P[np.arange(len(idx)), idx] = 1.0
         akw = dict(
-            aP=P, acenters=cen,
-            apsi_L=pads["psi_L"], apsi_U=pads["psi_U"],
-            aL_mask=pads["L_mask"], aU_mask=pads["U_mask"],
-            a_nsel=n_sel, a_R=R, aPsel=Psel,
+            aP=P, acenters=centers,
+            apsi_L=vals["psi_L"], apsi_U=vals["psi_U"],
+            aL_mask=vals["L_mask"], aU_mask=vals["U_mask"],
         )
 
     return EdgeProblem(
@@ -283,174 +235,3 @@ def ehess(ep: EdgeProblem, Y, Z, dgoal_e):
         h_a = (ma * adD)[..., None] * adiff - sa[..., None] * adiffZ
         H = H + 2.0 * jnp.einsum("an,...ad->...nd", P, h_a)
     return H
-
-
-# ---------------------------------------------------------------------------
-# Pallas TPU backend: fused batched kernels (grid over batch lane-tiles)
-# ---------------------------------------------------------------------------
-#
-# Layout: instances live on the lane axis. Y is passed as (d*N, B) so each
-# grid step sees a (d*N, TB) block; edge params ride along as (Ep, 1)
-# columns broadcast across lanes; goal distances as (Ep, B).
-
-def _pack_params(ep: EdgeProblem) -> np.ndarray:
-    return np.stack(
-        [ep.omega, ep.psi_L, ep.psi_U, ep.L_mask, ep.U_mask], axis=1
-    )  # (Ep, 5)
-
-
-def _kernel_cost_grad(c_ref, ct_ref, par_ref, dg_ref, y_ref, f_ref, g_ref,
-                      *, N: int, d: int):
-    Yb = y_ref[:]                      # (d*N, TB)
-    C = c_ref[:]                       # (Ep, N)
-    dist = jnp.zeros((C.shape[0], Yb.shape[1]), Yb.dtype)
-    diffs = []
-    for k in range(d):
-        dk = jnp.dot(C, Yb[k * N:(k + 1) * N, :],
-                     preferred_element_type=jnp.float32)
-        diffs.append(dk)
-        dist = dist + dk * dk
-    om = par_ref[:, 0:1]
-    s0 = om * (dg_ref[:] - dist)
-    e1 = par_ref[:, 3:4] * jnp.maximum(par_ref[:, 1:2] - dist, 0.0)
-    e2 = par_ref[:, 4:5] * jnp.maximum(dist - par_ref[:, 2:3], 0.0)
-    f_ref[:] = jnp.sum(s0 * s0 + e1 * e1 + e2 * e2, axis=0, keepdims=True)
-    s = s0 + e1 - e2
-    Ct = ct_ref[:]                     # (N, Ep)
-    for k in range(d):
-        g_ref[k * N:(k + 1) * N, :] = -2.0 * jnp.dot(
-            Ct, s * diffs[k], preferred_element_type=jnp.float32)
-
-
-def _kernel_hess(c_ref, ct_ref, par_ref, dg_ref, y_ref, z_ref, h_ref,
-                 *, N: int, d: int):
-    Yb = y_ref[:]
-    Zb = z_ref[:]
-    C = c_ref[:]
-    dist = jnp.zeros((C.shape[0], Yb.shape[1]), Yb.dtype)
-    dY, dZ = [], []
-    for k in range(d):
-        yk = jnp.dot(C, Yb[k * N:(k + 1) * N, :],
-                     preferred_element_type=jnp.float32)
-        zk = jnp.dot(C, Zb[k * N:(k + 1) * N, :],
-                     preferred_element_type=jnp.float32)
-        dY.append(yk)
-        dZ.append(zk)
-        dist = dist + yk * yk
-    dD = jnp.zeros_like(dist)
-    for k in range(d):
-        dD = dD + dY[k] * dZ[k]
-    dD = 2.0 * dD
-    om = par_ref[:, 0:1]
-    s0 = om * (dg_ref[:] - dist)
-    e1 = par_ref[:, 3:4] * jnp.maximum(par_ref[:, 1:2] - dist, 0.0)
-    e2 = par_ref[:, 4:5] * jnp.maximum(dist - par_ref[:, 2:3], 0.0)
-    s = s0 + e1 - e2
-    m = om + par_ref[:, 3:4] * (e1 > 0) + par_ref[:, 4:5] * (e2 > 0)
-    Ct = ct_ref[:]
-    for k in range(d):
-        h_ref[k * N:(k + 1) * N, :] = 2.0 * jnp.dot(
-            Ct, m * dD * dY[k] - s * dZ[k],
-            preferred_element_type=jnp.float32)
-
-
-def _pad_batch(x, tb):
-    B = x.shape[-1]
-    Bp = -(-B // tb) * tb
-    if Bp != B:
-        x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, Bp - B)])
-    return x, B, Bp
-
-
-def _to_lanes(Y):
-    """(B, N, d) -> (d*N, B)."""
-    return jnp.transpose(Y, (2, 1, 0)).reshape(Y.shape[2] * Y.shape[1], Y.shape[0])
-
-
-def _from_lanes(Yl, B, N, d):
-    """(d*N, Bp) -> (B, N, d)."""
-    return jnp.transpose(Yl.reshape(d, N, -1)[:, :, :B], (2, 1, 0))
-
-
-@partial(jax.jit, static_argnums=(0, 3, 4))
-def cost_and_egrad_pallas(ep: EdgeProblem, Y, dgoal_e, tile: int = _LANE,
-                          interpret: bool = False):
-    """Fused batched cost+grad on TPU. Y: (B, N, d); dgoal_e: (B, E) or
-    (B, Ep). Returns (f (B,), grad (B, N, d)), f32."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, N, d = Y.shape
-    Ep = ep.Ep
-    Yl, _, Bp = _pad_batch(_to_lanes(Y.astype(jnp.float32)), tile)
-    dg = jnp.zeros((B, Ep), jnp.float32).at[:, :dgoal_e.shape[-1]].set(
-        dgoal_e.astype(jnp.float32))
-    dg, _, _ = _pad_batch(dg.T, tile)
-
-    grid = (Bp // tile,)
-    kern = partial(_kernel_cost_grad, N=N, d=d)
-    f, g = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((Ep, N), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, Ep), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ep, 8), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ep, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d * N, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d * N, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((1, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((d * N, Bp), jnp.float32),
-        ],
-        interpret=interpret,
-    )(
-        jnp.asarray(ep.C, jnp.float32), jnp.asarray(ep.C.T, jnp.float32),
-        jnp.asarray(np.pad(_pack_params(ep), ((0, 0), (0, 3))), jnp.float32),
-        dg, Yl,
-    )
-    return f[0, :B], _from_lanes(g, B, N, d)
-
-
-@partial(jax.jit, static_argnums=(0, 4, 5))
-def ehess_pallas(ep: EdgeProblem, Y, Z, dgoal_e, tile: int = _LANE,
-                 interpret: bool = False):
-    """Fused batched Hessian-vector product on TPU."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, N, d = Y.shape
-    Ep = ep.Ep
-    Yl, _, Bp = _pad_batch(_to_lanes(Y.astype(jnp.float32)), tile)
-    Zl, _, _ = _pad_batch(_to_lanes(Z.astype(jnp.float32)), tile)
-    dg = jnp.zeros((B, Ep), jnp.float32).at[:, :dgoal_e.shape[-1]].set(
-        dgoal_e.astype(jnp.float32))
-    dg, _, _ = _pad_batch(dg.T, tile)
-
-    grid = (Bp // tile,)
-    kern = partial(_kernel_hess, N=N, d=d)
-    h = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((Ep, N), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, Ep), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ep, 8), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ep, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d * N, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d * N, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((d * N, tile), lambda b: (0, b),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((d * N, Bp), jnp.float32),
-        interpret=interpret,
-    )(
-        jnp.asarray(ep.C, jnp.float32), jnp.asarray(ep.C.T, jnp.float32),
-        jnp.asarray(np.pad(_pack_params(ep), ((0, 0), (0, 3))), jnp.float32),
-        dg, Yl, Zl,
-    )
-    return _from_lanes(h, B, N, d)

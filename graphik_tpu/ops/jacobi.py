@@ -7,7 +7,7 @@ explode (>25 min for the batched solver). This Jacobi variant runs a FIXED
 number of round-robin sweeps where each round applies floor(s/2) disjoint
 Givens rotations as one (s, s) rotation-matrix multiply - a handful of ops
 inside a fori_loop, so the compiled program is tiny, and every op is a
-batched matmul/elementwise that maps straight onto the TPU.
+batched matmul/elementwise op.
 
 Accuracy: Jacobi converges quadratically; `sweeps=10` reaches ~1e-13 (f64)
 / ~1e-6 (f32) off-diagonal residual for s <= 32 - far beyond the ADMM

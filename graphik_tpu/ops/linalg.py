@@ -1,8 +1,8 @@
 """Small-matrix linear algebra as straight-line (unrolled) code.
 
 XLA's generic LU/Cholesky lower to data-dependent loops that are expensive
-to compile - and slow to run - when nested inside vmapped while-loops on
-TPU. The solver hot paths only need tiny SPD solves (the d^2 x d^2 Lyapunov
+to compile - and slow to run - when nested inside vmapped while-loops. The
+solver hot paths only need tiny SPD solves (the d^2 x d^2 Lyapunov
 system, n x n Gauss-Newton steps), so these unrolled versions compile to a
 few dozen fused vector ops instead.
 """
@@ -60,9 +60,9 @@ def spd_solve_unrolled(A, b):
 def chol_blocked(A, block: int = 16):
     """Blocked right-looking Cholesky built from explicit JAX dots.
 
-    On TPU, `lax.linalg.cholesky` lowers to XLA's internal decomposition
-    whose matmul passes run at default (bf16) precision for f32 - outside
-    `default_matmul_precision`'s reach - which is catastrophic for the
+    `lax.linalg.cholesky` lowers to an internal decomposition whose matmul
+    precision is outside `default_matmul_precision`'s reach (float32 may
+    run in reduced precision such as TF32), which is catastrophic for the
     ill-conditioned constraint Grams of the CIDGIK ADMM. This version uses
     only jnp ops (unrolled diagonal blocks + HIGHEST-precision trailing
     updates), so f32 results track f64 to ~1e-6.
@@ -136,7 +136,7 @@ def tri_lower_inv_blocked(L, block: int = 16):
 
 
 def spd_inverse_factor(A, block: int = 16):
-    """Linv with A^{-1} = Linv^T Linv (A SPD), bf16-safe on TPU.
+    """Linv with A^{-1} = Linv^T Linv (A SPD), from explicit HIGHEST dots.
 
     Solving A x = b then costs two HIGHEST-precision matmuls:
     x = Linv^T (Linv b).
@@ -148,11 +148,10 @@ def mm_unrolled(a, b):
     """(..., n, n) @ (..., n, n) as n broadcast-FMAs instead of a matmul op.
 
     For tiny n inside long sequential chains (Newton-Schulz on clique
-    blocks), each batched-matmul op costs ~20 us of dispatch latency on
-    TPU regardless of its trivial flop count; the broadcast formulation is
-    pure elementwise work that XLA fuses across the whole chain (measured
-    6.5x on NS16 over (768, 9, 9) blocks). Full f32 accumulation - no
-    bf16 matmul involved - so no precision caveat vs HIGHEST matmuls.
+    blocks), each batched-matmul op is a separate kernel whose launch costs
+    far more than its trivial flop count; the broadcast formulation is
+    pure elementwise work that XLA fuses across the whole chain. Full f32
+    accumulation - no reduced-precision matmul involved.
     """
     n = a.shape[-1]
     out = a[..., :, 0, None] * b[..., 0, None, :]
@@ -167,7 +166,7 @@ def psd_project_ns(W, iters: int = 14, unroll: bool = False):
     |W| = W sign(W) for symmetric W, and the sign iterates as
     S_{k+1} = S_k (3 I - S_k^2) / 2 starting from W normalized by its
     Frobenius norm (an upper bound on the spectral radius, guaranteeing
-    convergence). Everything is a batched (s, s) matmul - MXU-resident -
+    convergence). Everything is a batched (s, s) matmul -
     versus the ~120 sequential scatter-heavy rotation rounds of a Jacobi
     eigendecomposition. Eigenvalues of magnitude below ~(2/3)^iters of the
     norm have inaccurate signs, but their contribution to P is bounded by

@@ -7,11 +7,12 @@ sequential rotation rounds of scatter-heavy ops; at batch 4096 the init
 stage costs as much as the TR solve itself. But the init only needs the
 DOMINANT subspace, and only approximately - orthogonal iteration gets it
 in ~10 rounds of batched (n, n) x (n, k) matmuls plus a k x k Cholesky-QR,
-all MXU-friendly.
+all plain batched matmuls.
 
 Cholesky-QR orthonormalization: Q = Z R^{-1} with R^T R = Z^T Z, computed
-through the bf16-safe explicit factor (ops/linalg.spd_inverse_factor) so
-TPU f32 matmul passes do not corrupt the tiny k x k factor.
+through the explicit HIGHEST-precision factor (ops/linalg.spd_inverse_factor)
+so reduced-precision (TF32) matmul passes cannot corrupt the tiny k x k
+factor.
 """
 
 from __future__ import annotations

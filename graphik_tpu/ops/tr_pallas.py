@@ -1,12 +1,13 @@
-"""Fused Pallas TPU kernel: the ENTIRE Riemannian trust-region solve.
+"""Fused Pallas kernel (Triton route): the ENTIRE Riemannian trust-region solve.
 
-The XLA formulation of the batched TR solver (solvers/riemannian.py) spends
-its time on dispatch: each tCG inner iteration is ~40 tiny HLO ops over
-(B, N, d) tensors with N ~ 16, so the chip is idle between ops. This kernel
-instead runs the complete outer-TR + truncated-CG loop for a tile of
-instances entirely inside VMEM: instances live on the lane axis, points on
-the sublane axis, and every step is a handful of vector ops plus two small
-MXU matmuls - per-iteration cost drops from ~1 ms to ~1 us per 128-lane tile.
+The XLA formulation of the batched TR solver (solvers/riemannian.py) is a
+vmapped `lax.while_loop` (outer TR) around a nested `lax.while_loop` (tCG).
+Each tCG step is ~40 small HLO ops over (B, N, d) tensors with N ~ 16, and on
+XLA:GPU every loop trip costs kernel launches plus a device-to-host copy of
+the loop predicate, so the solve is bound by launches and syncs rather than
+by the SMs. This kernel runs the complete outer-TR + truncated-CG loop for a
+block of TB instances inside one Triton program: the state stays in
+registers for the whole solve, and one launch replaces thousands.
 
 Algorithm parity: trust_region.py:112-599 in the reference (outer loop,
 Steihaug-Toint tCG, rho regularization, radius updates) and the quotient
@@ -18,12 +19,24 @@ Cost convention matches ops/edge.py (= solvers/costs.py): the per-edge
 squared-residual sum with the reference's 1/2-consistent gradient scaling;
 all backends are parity-tested against each other.
 
-Layout per grid step (one batch tile of TB lanes):
-    C      (Ep, N)    signed incidence, broadcast over lanes
-    Ct     (N, Ep)    its transpose
+Layout of one program (a block of TB instances; instances on the last axis,
+every dimension a power of two, zero padding N -> Np, E -> Ep, B -> Bp):
+    C      (Ep, Np)   signed incidence
+    Ct     (Np, Ep)   its transpose
     par    (Ep, 8)    [omega, psi_L, psi_U, L_mask, U_mask, 0, 0, 0]
     dg     (Ep, TB)   per-instance squared goal distances on edges
-    Y      (d*N, TB)  stacked coordinate blocks Y_k = Y[kN:(k+1)N]
+    Y_k    (Np, TB)   one array per coordinate k < d (Triton has no value
+                      slicing or general concatenate, so coordinates are
+                      separate values, refs and loop carries)
+
+Anchored hinges (node vs constant point, the obstacle reduction) are
+streamed from memory in chunks of _ANCHOR_CHUNK rows that all belong to one
+node: `asel` (Np, Cp) holds each chunk's node one-hot column and `apar`
+(8 * RC, Cp) its rows' [psi_L, psi_U, L_mask, U_mask, center_0..d-1]. The
+Hessian of the anchor terms is block-diagonal over nodes, so once per outer
+iteration the chunks fold into per-node d x d blocks (stored as (Np, TB)
+planes) and every Hessian-vector product applies them elementwise; the
+anchor rows never sit in registers across tCG steps.
 """
 
 from __future__ import annotations
@@ -33,18 +46,40 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from graphik_tpu.ops.edge import EdgeProblem, _pack_params
-
-_LANE = 128
+from graphik_tpu.ops.edge import EdgeProblem
 
 # tCG stop reasons (trust_region.py:68-83); mirrored in solvers/riemannian.py
 _NEGATIVE_CURVATURE = 0
 _EXCEEDED_TR = 1
 _MAX_INNER_ITER = 4
 
+# Triton's dot needs every operand dimension >= 16, and every block
+# dimension must be a power of two.
+_MIN_DIM = 16
+_ANCHOR_CHUNK = 32
+# Block rule (see _choose_block), from H100 sweeps (PERF.md, "Kernel
+# decisions"): each instance's loop-resident state is spread over enough
+# threads that a thread holds at most ~160 of the 255 registers it may
+# have (ur10 at ~132 per thread ran 2-3x faster than at ~264, which
+# spills); the grid keeps at least one block per SM of an H100 (132); and
+# blocks stay at 16 or 32 instances (64 measured slower). Shared memory is
+# not the limit: a block stages only dot operands (Ep x TB f32, 8 KB at
+# ur10 widths) of the 227 KB it may use.
+_REGS_PER_THREAD = 160
+_NUM_SMS = 132
+_MAX_TILE = 32
+
+
+def _pow2(n: int, lo: int = _MIN_DIM) -> int:
+    return max(lo, 1 << (max(int(n), 1) - 1).bit_length())
+
 
 def _dot(a, b):
+    # HIGHEST = IEEE f32 FMAs in Triton; TF32 would cost the mm-level
+    # accuracy the joint-space polish depends on.
     return jnp.dot(
         a, b,
         preferred_element_type=jnp.float32,
@@ -56,81 +91,60 @@ def _rowsum(x):
     return jnp.sum(x, axis=0, keepdims=True)  # (R, TB) -> (1, TB)
 
 
+def _inner(a, b):
+    """Per-instance inner product of two coordinate tuples -> (1, TB)."""
+    out = _rowsum(a[0] * b[0])
+    for ak, bk in zip(a[1:], b[1:]):
+        out = out + _rowsum(ak * bk)
+    return out
+
+
+def _where(c, a, b):
+    return tuple(jnp.where(c, ak, bk) for ak, bk in zip(a, b))
+
+
+def _axpy(alpha, x, y):
+    """alpha * x + y over coordinate tuples."""
+    return tuple(alpha * xk + yk for xk, yk in zip(x, y))
+
+
+def _sym_pairs(d):
+    return [(k, l) for k in range(d) for l in range(k, d)]
+
+
 def _tr_kernel(
-    c_ref, ct_ref, par_ref, dg_ref, *rest_refs,
-    N: int, d: int, maxiter: int, maxinner: int, mingradnorm: float,
+    c_ref, ct_ref, par_ref, dg_ref, *refs,
+    d: int, maxiter: int, maxinner: int, mingradnorm: float,
     kappa: float, theta: float, rho_prime: float, rho_regularization: float,
-    Delta_bar: float, Delta0: float, mininner: int, has_anchors: bool,
-    a_nsel: int = 0, a_R: int = 0,
-    plateau_every: int = 0, plateau_rtol: float = 0.0,
-    plateau_atol: float = 0.0, res_tol: float = 0.0,
+    Delta_bar: float, Delta0: float, mininner: int, n_chunks: int,
+    plateau_every: int, plateau_rtol: float, plateau_atol: float,
+    res_tol: float,
 ):
     f32 = jnp.float32
-    C = c_ref[:]          # (Ep, N)
-    Ct = ct_ref[:]        # (N, Ep)
+    has_anchors = n_chunks > 0
+    if has_anchors:
+        asel_ref, apar_ref, *refs = refs
+    y0_refs = refs[:d]
+    act_ref = refs[d]
+    yout_refs = refs[d + 1:2 * d + 1]
+    stats_ref = refs[2 * d + 1]
+
+    C = c_ref[...]        # (Ep, Np)
+    Ct = ct_ref[...]      # (Np, Ep)
     om = par_ref[:, 0:1]
     psiL = par_ref[:, 1:2]
     psiU = par_ref[:, 2:3]
     Lm = par_ref[:, 3:4]
     Um = par_ref[:, 4:5]
-    dg = dg_ref[:]        # (Ep, TB)
-    if has_anchors:
-        ap_ref, apt_ref, apar_ref, y0_ref, act_ref, yout_ref, stats_ref = (
-            rest_refs
-        )
-        # Grid layout (a_nsel > 0): AP is the (pad8(a_nsel), N) DISTINCT-node
-        # one-hot; expansion to the (Ap, TB) anchor rows is a sublane
-        # broadcast and the scatter-back a block row-sum - the (Ap, N)
-        # matmuls this replaces dominate obstacle-rich scenes.
-        AP = ap_ref[:]
-        APt = apt_ref[:]
-        apsiL = apar_ref[:, 0:1]
-        apsiU = apar_ref[:, 1:2]
-        aLm = apar_ref[:, 2:3]
-        aUm = apar_ref[:, 3:4]
-        acen = [apar_ref[:, 4 + k:5 + k] for k in range(d)]  # (Ap, 1) each
-
-        if a_nsel:
-            # Deliberately UNROLLED over the a_nsel groups: code size grows
-            # linearly with the number of distinct anchored robot nodes
-            # (bounded by the joint count, <= ~20), but each group lowers to
-            # a plain sublane broadcast / row-sum. The reshape-based
-            # alternative ((a_nsel, 1, TB) -> broadcast -> merge into the
-            # sublane dim) measured 8x SLOWER end-to-end on the table scene
-            # (12.4 s vs 1.55 s per 4096 batch) - Mosaic lowers the
-            # sublane-merging reshape into element shuffles.
-            def a_expand(Yk):
-                """(N, TB) -> (Ap, TB): per-group broadcast of node rows."""
-                Ysel = _dot(AP, Yk)  # (pad8(a_nsel), TB)
-                return jnp.concatenate(
-                    [jnp.broadcast_to(Ysel[g:g + 1], (a_R, Ysel.shape[1]))
-                     for g in range(a_nsel)], axis=0)
-
-            def a_reduce(w):
-                """(Ap, TB) -> (N, TB): block row-sums then tiny scatter."""
-                gs = [_rowsum(w[g * a_R:(g + 1) * a_R])
-                      for g in range(a_nsel)]
-                n_sel_p = AP.shape[0]
-                if n_sel_p > a_nsel:
-                    gs.append(jnp.zeros((n_sel_p - a_nsel, w.shape[1]),
-                                        w.dtype))
-                return _dot(APt, jnp.concatenate(gs, axis=0))
-        else:
-            a_expand = lambda Yk: _dot(AP, Yk)
-            a_reduce = lambda w: _dot(APt, w)
-    else:
-        y0_ref, act_ref, yout_ref, stats_ref = rest_refs
-    active = act_ref[:] > 0.0   # (1, TB)
-    Y0 = y0_ref[:]        # (dN, TB)
-    TB = Y0.shape[1]
-
-    eps = jnp.asarray(np.finfo(np.float32).eps, f32)
-
-    def blocks(Y):
-        return [Y[k * N:(k + 1) * N, :] for k in range(d)]
+    dg = dg_ref[...]      # (Ep, TB)
+    active = act_ref[...] > 0.0   # (1, TB)
+    Y0 = tuple(r[...] for r in y0_refs)
+    TB = dg.shape[1]
+    eps = float(np.finfo(np.float32).eps)
+    pairs = _sym_pairs(d)
 
     def edge_diffs(Y):
-        return [_dot(C, Yk) for Yk in blocks(Y)]
+        return [_dot(C, Yk) for Yk in Y]
 
     def cost_terms(dY):
         dist = dY[0] * dY[0]
@@ -141,73 +155,71 @@ def _tr_kernel(
         e2 = Um * jnp.maximum(dist - psiU, 0.0)
         return s0, e1, e2
 
-    def anchor_diffs(Y):
-        return [a_expand(Yk) - acen[k] for k, Yk in enumerate(blocks(Y))]
+    if res_tol > 0.0:
+        # Per-instance scale floor for the relative-residual stop: the mean
+        # equality-edge squared length (solvers/costs.residual_max).
+        eq_cnt = jnp.maximum(jnp.sum(om), 1.0)
+        r_floor = _rowsum(om * dg) / eq_cnt  # (1, TB)
 
-    def anchor_terms(adY):
+    def anchor_chunk(c, Y):
+        """Rows of anchor chunk c: node one-hot, per-row diffs and hinges."""
+        sel = asel_ref[:, pl.ds(c, 1)]  # (Np, 1)
+
+        def col(i):
+            return apar_ref[pl.ds(i * _ANCHOR_CHUNK, _ANCHOR_CHUNK),
+                            pl.ds(c, 1)]  # (RC, 1)
+
+        adY = [_rowsum(sel * Y[k]) - col(4 + k) for k in range(d)]
         adist = adY[0] * adY[0]
         for k in range(1, d):
             adist = adist + adY[k] * adY[k]
-        a1 = aLm * jnp.maximum(apsiL - adist, 0.0)
-        a2 = aUm * jnp.maximum(adist - apsiU, 0.0)
-        return a1, a2
-
-    if res_tol > 0.0:
-        # Per-lane scale floor for the relative-residual stop: the mean
-        # equality-edge squared length (solvers/costs.residual_max).
-        eq_cnt = jnp.maximum(_rowsum(om * jnp.ones_like(om)), 1.0)  # (1, 1)
-        r_floor = _rowsum(om * dg) / eq_cnt  # (1, TB)
-
-    def res_max(s0, e1, e2, a1=None, a2=None):
-        """Max relative residual per lane (1, TB); transient intermediates
-        only - the (Ep/Ap, TB) weight tensors are never loop-persistent."""
-        r = jnp.abs(s0) / jnp.maximum(dg, r_floor)
-        r = jnp.maximum(r, e1 / jnp.maximum(psiL, r_floor))
-        r = jnp.maximum(r, e2 / jnp.maximum(psiU, r_floor))
-        rmax = jnp.max(r, axis=0, keepdims=True)
-        if a1 is not None:
-            ra = jnp.maximum(
-                a1 / jnp.maximum(apsiL, r_floor),
-                a2 / jnp.maximum(apsiU, r_floor),
-            )
-            rmax = jnp.maximum(rmax, jnp.max(ra, axis=0, keepdims=True))
-        return rmax
+        a1 = col(2) * jnp.maximum(col(0) - adist, 0.0)
+        a2 = col(3) * jnp.maximum(adist - col(1), 0.0)
+        return sel, adY, a1, a2, col
 
     def cost_and_grad(Y):
-        """f (1, TB), grad (dN, TB), rmax (1, TB) - edge convention
+        """f (1, TB), grad (d x (Np, TB)), rmax (1, TB) - edge convention
         (ops/edge.py); rmax is 0 when the residual stop is disabled."""
         dY = edge_diffs(Y)
         s0, e1, e2 = cost_terms(dY)
         f = _rowsum(s0 * s0 + e1 * e1 + e2 * e2)
         s = s0 + e1 - e2
-        gk = [-2.0 * _dot(Ct, s * dYk) for dYk in dY]
-        a1 = a2 = None
-        if has_anchors:
-            adY = anchor_diffs(Y)
-            a1, a2 = anchor_terms(adY)
-            f = f + _rowsum(a1 * a1 + a2 * a2)
-            sa = a1 - a2
-            for k in range(d):
-                gk[k] = gk[k] - 2.0 * a_reduce(sa * adY[k])
+        g = tuple(-2.0 * _dot(Ct, s * dYk) for dYk in dY)
         if res_tol > 0.0:
-            rmax = res_max(s0, e1, e2, a1, a2)
+            r = jnp.abs(s0) / jnp.maximum(dg, r_floor)
+            r = jnp.maximum(r, e1 / jnp.maximum(psiL, r_floor))
+            r = jnp.maximum(r, e2 / jnp.maximum(psiU, r_floor))
+            rmax = jnp.max(r, axis=0, keepdims=True)
         else:
             rmax = jnp.zeros_like(f)
-        return f, jnp.concatenate(gk, axis=0), rmax
+        if has_anchors:
+            def body(c, carry):
+                f, rmax, g = carry
+                sel, adY, a1, a2, col = anchor_chunk(c, Y)
+                f = f + _rowsum(a1 * a1 + a2 * a2)
+                sa = a1 - a2
+                g = tuple(g[k] - 2.0 * sel * _rowsum(sa * adY[k])
+                          for k in range(d))
+                if res_tol > 0.0:
+                    ra = jnp.maximum(a1 / jnp.maximum(col(0), r_floor),
+                                     a2 / jnp.maximum(col(1), r_floor))
+                    rmax = jnp.maximum(rmax, jnp.max(ra, axis=0,
+                                                     keepdims=True))
+                return f, rmax, g
+
+            f, rmax, g = jax.lax.fori_loop(0, n_chunks, body, (f, rmax, g))
+        return f, g, rmax
 
     def gram_scalars(Y):
         """Unique entries of X = Y^T Y as (1, TB) rows: x11,x22,x33,x12,x13,x23."""
-        Yk = blocks(Y)
-        out = []
-        for i in range(d):
-            out.append(_rowsum(Yk[i] * Yk[i]))
+        out = [_rowsum(Y[i] * Y[i]) for i in range(d)]
         for i in range(d):
             for j in range(i + 1, d):
-                out.append(_rowsum(Yk[i] * Yk[j]))
+                out.append(_rowsum(Y[i] * Y[j]))
         return out
 
     def chol3(m11, m12, m13, m22, m23, m33):
-        """Unrolled 3x3 Cholesky over lane rows."""
+        """Unrolled 3x3 Cholesky over instance rows."""
         l11 = jnp.sqrt(jnp.maximum(m11, 1e-30))
         l21 = m12 / l11
         l31 = m13 / l11
@@ -242,23 +254,19 @@ def _tr_kernel(
     def proj(Y, H, fac):
         """Horizontal projection H - Y Om; Om antisymmetric from the
         Lyapunov system (solvers/riemannian.manifold_proj)."""
-        Yk = blocks(Y)
-        Hk = blocks(H)
         if d == 2:
-            c12 = _rowsum(Yk[0] * Hk[1] - Hk[0] * Yk[1])
-            a = c12 / fac[0]
-            P0 = Hk[0] + a * Yk[1]
-            P1 = Hk[1] - a * Yk[0]
-            return jnp.concatenate([P0, P1], axis=0)
-        c12 = _rowsum(Yk[0] * Hk[1] - Hk[0] * Yk[1])
-        c13 = _rowsum(Yk[0] * Hk[2] - Hk[0] * Yk[2])
-        c23 = _rowsum(Yk[1] * Hk[2] - Hk[1] * Yk[2])
+            a = _rowsum(Y[0] * H[1] - H[0] * Y[1]) / fac[0]
+            return (H[0] + a * Y[1], H[1] - a * Y[0])
+        c12 = _rowsum(Y[0] * H[1] - H[0] * Y[1])
+        c13 = _rowsum(Y[0] * H[2] - H[0] * Y[2])
+        c23 = _rowsum(Y[1] * H[2] - H[1] * Y[2])
         a, b, c = chol3_solve(fac, c12, c13, c23)
         # Om = [[0, a, b], [-a, 0, c], [-b, -c, 0]]; P = H - Y Om
-        P0 = Hk[0] + a * Yk[1] + b * Yk[2]
-        P1 = Hk[1] - a * Yk[0] + c * Yk[2]
-        P2 = Hk[2] - b * Yk[0] - c * Yk[1]
-        return jnp.concatenate([P0, P1, P2], axis=0)
+        return (
+            H[0] + a * Y[1] + b * Y[2],
+            H[1] - a * Y[0] + c * Y[2],
+            H[2] - b * Y[0] - c * Y[1],
+        )
 
     def make_hvp(Y):
         """Riemannian Hessian-vector product at fixed Y (precomputed terms)."""
@@ -268,76 +276,81 @@ def _tr_kernel(
         m = om + Lm * (e1 > 0).astype(f32) + Um * (e2 > 0).astype(f32)
         fac = proj_factors(Y)
         if has_anchors:
-            adY = anchor_diffs(Y)
-            a1, a2 = anchor_terms(adY)
-            sa = a1 - a2
-            ma = aLm * (a1 > 0).astype(f32) + aUm * (a2 > 0).astype(f32)
+            # Per-node anchor Hessian blocks: S[u] = sum of (a1 - a2) and
+            # Q_kl[u] = sum of m_a adY_k adY_l over node u's anchor rows.
+            def body(c, carry):
+                S, Q = carry
+                sel, adY, a1, a2, col = anchor_chunk(c, Y)
+                ma = (col(2) * (a1 > 0).astype(f32)
+                      + col(3) * (a2 > 0).astype(f32))
+                S = S + sel * _rowsum(a1 - a2)
+                Q = tuple(Q[i] + sel * _rowsum(ma * adY[k] * adY[l])
+                          for i, (k, l) in enumerate(pairs))
+                return S, Q
+
+            zero = jnp.zeros_like(Y[0])
+            S, Q = jax.lax.fori_loop(
+                0, n_chunks, body, (zero, tuple(zero for _ in pairs)))
+            Qkl = {}
+            for i, (k, l) in enumerate(pairs):
+                Qkl[k, l] = Qkl[l, k] = Q[i]
 
         def hvp(Z):
             dZ = edge_diffs(Z)
             dD = dY[0] * dZ[0]
             for k in range(1, d):
                 dD = dD + dY[k] * dZ[k]
-            dD = 2.0 * dD
-            mdD = m * dD
-            Hk = [2.0 * _dot(Ct, mdD * dY[k] - s * dZ[k]) for k in range(d)]
+            mdD = m * (2.0 * dD)
+            H = [2.0 * _dot(Ct, mdD * dY[k] - s * dZ[k]) for k in range(d)]
             if has_anchors:
-                adZ = [a_expand(Zk) for Zk in blocks(Z)]
-                adD = adY[0] * adZ[0]
-                for k in range(1, d):
-                    adD = adD + adY[k] * adZ[k]
-                amdD = ma * 2.0 * adD
                 for k in range(d):
-                    Hk[k] = Hk[k] + 2.0 * a_reduce(
-                        amdD * adY[k] - sa * adZ[k]
-                    )
-            return proj(Y, jnp.concatenate(Hk, axis=0), fac)
+                    qz = Qkl[k, 0] * Z[0]
+                    for l in range(1, d):
+                        qz = qz + Qkl[k, l] * Z[l]
+                    H[k] = H[k] + 2.0 * (2.0 * qz - S * Z[k])
+            return proj(Y, H, fac)
 
         return hvp
 
-    def inner12(a, b):
-        return _rowsum(a * b)
-
     # ---------------- truncated CG (trust_region.py:436-599) ----------------
-    # All loop-carried lane masks are f32 0/1 (Mosaic rejects i1 vectors in
-    # scf loop carries); comparisons stay local to each body.
-    def tcg(hvp, grad, Delta, outer_done_f):
+    def any_live(done):
+        """True while some instance of the block is not done."""
+        return jnp.max(jnp.where(done, 0, 1)) > 0
+
+    def tcg(hvp, grad, Delta, outer_done):
         r0 = grad
-        r_r0 = inner12(r0, r0)
+        r_r0 = _inner(r0, r0)
         norm_r0 = jnp.sqrt(r_r0)
-        if theta == 1.0:
-            pow_r0 = norm_r0
-        else:
-            pow_r0 = norm_r0 ** theta
+        pow_r0 = norm_r0 if theta == 1.0 else norm_r0 ** theta
         target = norm_r0 * jnp.minimum(pow_r0, kappa)
 
-        zero_v = jnp.zeros_like(grad)
+        zero_v = tuple(jnp.zeros_like(g) for g in grad)
+        row0 = jnp.zeros((1, TB), f32)
         init = (
             jnp.zeros((), jnp.int32),                   # j
             zero_v,                                     # eta
             zero_v,                                     # Heta
             r0,                                         # r
-            -r0,                                        # delta
-            jnp.zeros((1, TB), f32),                    # e_Pe
-            jnp.zeros((1, TB), f32),                    # e_Pd
+            tuple(-g for g in r0),                      # delta
+            row0,                                       # e_Pe
+            row0,                                       # e_Pd
             r_r0,                                       # d_Pd
             r_r0,                                       # z_r
             jnp.full((1, TB), float(_MAX_INNER_ITER), f32),  # stop
-            outer_done_f,                               # tdone (f32 0/1)
-            jnp.zeros((1, TB), f32),                    # steps taken
+            outer_done,                                 # tdone
+            row0,                                       # steps taken
         )
 
         def cond(st):
-            j = st[0]
-            tdone_f = st[10]
-            return (j < maxinner) & (jnp.sum(1.0 - tdone_f) > 0.0)
+            j, tdone = st[0], st[10]
+            return (j < maxinner) & any_live(tdone)
 
         def body(st):
-            (j, eta, Heta, r, delta, e_Pe, e_Pd, d_Pd, z_r, stop, tdone_f,
+            (j, eta, Heta, r, delta, e_Pe, e_Pd, d_Pd, z_r, stop, tdone,
              nsteps) = st
-            upd = tdone_f == 0.0
+            upd = ~tdone
             Hdelta = hvp(delta)
-            d_Hd = inner12(delta, Hdelta)
+            d_Hd = _inner(delta, Hdelta)
             alpha = z_r / d_Hd
             e_Pe_new = e_Pe + 2.0 * alpha * e_Pd + alpha * alpha * d_Pd
 
@@ -350,54 +363,50 @@ def _tr_kernel(
             )
             disc = jnp.maximum(e_Pd * e_Pd + d_Pd * (Dsq - e_Pe), 0.0)
             tau = (-e_Pd + jnp.sqrt(disc)) / d_Pd
-            eta_b = eta + tau * delta
-            Heta_b = Heta + tau * Hdelta
+            eta_b = _axpy(tau, delta, eta)
+            Heta_b = _axpy(tau, Hdelta, Heta)
             stop_b = jnp.where(
                 d_Hd <= 0.0,
                 float(_NEGATIVE_CURVATURE),
                 float(_EXCEEDED_TR),
             )
 
-            new_eta = eta + alpha * delta
-            new_Heta = Heta + alpha * Hdelta
-            r_new = r + alpha * Hdelta
-            r_r = inner12(r_new, r_new)
+            new_eta = _axpy(alpha, delta, eta)
+            new_Heta = _axpy(alpha, Hdelta, Heta)
+            r_new = _axpy(alpha, Hdelta, r)
+            r_r = _inner(r_new, r_new)
             norm_r = jnp.sqrt(r_r)
             reached = (j >= mininner) & (norm_r <= target)
 
             beta = r_r / z_r
-            delta_new = -r_new + beta * delta
+            delta_new = tuple(beta * dk - rk for dk, rk in zip(delta, r_new))
             e_Pd_new = beta * (e_Pd + alpha * d_Pd)
             d_Pd_new = r_r + beta * beta * d_Pd
 
             take_boundary = upd & hit_boundary
             take_target = upd & (~hit_boundary) & reached
 
-            def sel(cond_, x, y):
-                return jnp.where(cond_, x, y)
-
-            eta_out = sel(take_boundary, eta_b, new_eta)
-            Heta_out = sel(take_boundary, Heta_b, new_Heta)
-            eta_out = sel(upd, eta_out, eta)
-            Heta_out = sel(upd, Heta_out, Heta)
+            eta_out = _where(upd, _where(take_boundary, eta_b, new_eta), eta)
+            Heta_out = _where(
+                upd, _where(take_boundary, Heta_b, new_Heta), Heta)
 
             done_now = take_boundary | take_target
             stop_out = jnp.where(
                 take_boundary, stop_b, jnp.where(take_target, 2.0, stop)
             )
-            tdone_new = jnp.maximum(tdone_f, done_now.astype(f32))
+            tdone_new = tdone | done_now
             cont = upd & ~done_now
 
             return (
                 j + 1,
                 eta_out,
                 Heta_out,
-                sel(cont, r_new, r),
-                sel(cont, delta_new, delta),
-                sel(cont, e_Pe_new, e_Pe),
-                sel(cont, e_Pd_new, e_Pd),
-                sel(cont, d_Pd_new, d_Pd),
-                sel(cont, r_r, z_r),
+                _where(cont, r_new, r),
+                _where(cont, delta_new, delta),
+                jnp.where(cont, e_Pe_new, e_Pe),
+                jnp.where(cont, e_Pd_new, e_Pd),
+                jnp.where(cont, d_Pd_new, d_Pd),
+                jnp.where(cont, r_r, z_r),
                 stop_out,
                 tdone_new,
                 nsteps + upd.astype(f32),
@@ -409,11 +418,11 @@ def _tr_kernel(
 
     # ---------------- outer TR loop (trust_region.py:112-434) --------------
     fx0, g0, rmax0 = cost_and_grad(Y0)
-    norm_g0 = jnp.sqrt(inner12(g0, g0))
+    norm_g0 = jnp.sqrt(_inner(g0, g0))
     done0 = (~active) | (norm_g0 < mingradnorm)
     if res_tol > 0.0:
         done0 = done0 | (rmax0 < res_tol)
-    done0 = done0.astype(f32)
+    row0 = jnp.zeros((1, TB), f32)
 
     carry0 = (
         jnp.zeros((), jnp.int32),          # k (global)
@@ -422,33 +431,32 @@ def _tr_kernel(
         g0,
         norm_g0,
         jnp.full((1, TB), Delta0, f32),    # Delta
-        done0,                             # done (f32 0/1)
-        jnp.zeros((1, TB), f32),           # iters (per lane)
-        jnp.zeros((1, TB), f32),           # num_inner (per lane)
+        done0,                             # done
+        row0,                              # iters (per instance)
+        row0,                              # num_inner (per instance)
         fx0,                               # fx_ref (plateau checkpoint)
         rmax0,                             # max relative residual
     )
 
     def ocond(st):
-        k = st[0]
-        done_f = st[6]
-        return (k < maxiter) & (jnp.sum(1.0 - done_f) > 0.0)
+        k, done = st[0], st[6]
+        return (k < maxiter) & any_live(done)
 
     def obody(st):
-        (k, Y, fx, grad, norm_grad, Delta, done_f, iters, ninner, fx_ref,
+        (k, Y, fx, grad, norm_grad, Delta, done, iters, ninner, fx_ref,
          rmax) = st
-        upd = done_f == 0.0
+        upd = ~done
         hvp = make_hvp(Y)
-        eta, Heta, _stop, nsteps = tcg(hvp, grad, Delta, done_f)
-        stop_neg = _stop == float(_NEGATIVE_CURVATURE)
-        stop_tr = _stop == float(_EXCEEDED_TR)
+        eta, Heta, stop, nsteps = tcg(hvp, grad, Delta, done)
+        stop_neg = stop == float(_NEGATIVE_CURVATURE)
+        stop_tr = stop == float(_EXCEEDED_TR)
 
-        Y_prop = Y + eta
+        Y_prop = tuple(yk + ek for yk, ek in zip(Y, eta))
         fx_prop, g_prop, rmax_prop = cost_and_grad(Y_prop)
 
         rho_reg = jnp.maximum(1.0, jnp.abs(fx)) * eps * rho_regularization
         rhonum = fx - fx_prop + rho_reg
-        rhoden = -inner12(grad, eta) - 0.5 * inner12(eta, Heta) + rho_reg
+        rhoden = -_inner(grad, eta) - 0.5 * _inner(eta, Heta) + rho_reg
         model_decreased = rhoden >= 0.0
         rho = rhonum / rhoden
 
@@ -460,40 +468,33 @@ def _tr_kernel(
             jnp.where(grow, jnp.minimum(2.0 * Delta, Delta_bar), Delta),
         )
 
-        accept = model_decreased & (rho > rho_prime)
-        take = upd & accept
-        Y_new = jnp.where(take, Y_prop, Y)
+        take = upd & model_decreased & (rho > rho_prime)
+        Y_new = _where(take, Y_prop, Y)
         fx_new = jnp.where(take, fx_prop, fx)
-        g_new = jnp.where(take, g_prop, grad)
+        g_new = _where(take, g_prop, grad)
         norm_g_new = jnp.where(
-            take, jnp.sqrt(inner12(g_prop, g_prop)), norm_grad
+            take, jnp.sqrt(_inner(g_prop, g_prop)), norm_grad
         )
         Delta_out = jnp.where(upd, Delta_new, Delta)
 
-        done_new = jnp.maximum(
-            done_f, (upd & (norm_g_new < mingradnorm)).astype(f32)
-        )
+        done_new = done | (upd & (norm_g_new < mingradnorm))
         rmax_new = rmax
         if res_tol > 0.0:
-            # Feasibility-aware stop: the lane's accepted iterate already
-            # satisfies every edge to ~res_tol/2 of its length - inside the
-            # GN polish basin, so further TR iterations buy nothing.
+            # Feasibility-aware stop: the accepted iterate already satisfies
+            # every edge to ~res_tol/2 of its length - inside the GN polish
+            # basin, so further TR iterations buy nothing.
             rmax_new = jnp.where(take, rmax_prop, rmax)
-            done_new = jnp.maximum(
-                done_new, (upd & (rmax_new < res_tol)).astype(f32)
-            )
+            done_new = done_new | (upd & (rmax_new < res_tol))
         fx_ref_new = fx_ref
         if plateau_every:
             # Cost-plateau stop (see TRParams.plateau_every): checked on the
-            # global iteration counter so every live lane compares its cost
-            # against the checkpoint from plateau_every iterations ago.
+            # global iteration counter so every live instance compares its
+            # cost against the checkpoint from plateau_every iterations ago.
             at_check = (k + 1) % plateau_every == 0
             stalled = (fx_ref - fx_new) <= (
                 plateau_rtol * fx_new + plateau_atol
             )
-            done_new = jnp.maximum(
-                done_new, (upd & stalled & at_check).astype(f32)
-            )
+            done_new = done_new | (upd & stalled & at_check)
             fx_ref_new = jnp.where(at_check, fx_new, fx_ref)
         return (
             k + 1,
@@ -509,15 +510,65 @@ def _tr_kernel(
             rmax_new,
         )
 
-    (k, Y, fx, grad, norm_grad, Delta, done_f, iters, ninner, _fx_ref,
-     _rmax) = jax.lax.while_loop(ocond, obody, carry0)
+    (_, Y, fx, _, norm_grad, Delta, _, iters, ninner, _,
+     _) = jax.lax.while_loop(ocond, obody, carry0)
 
-    yout_ref[:] = Y
-    stats = jnp.concatenate(
-        [fx, norm_grad, iters, ninner, Delta, jnp.zeros((3, TB), f32)],
-        axis=0,
-    )
-    stats_ref[:] = stats
+    for r, Yk in zip(yout_refs, Y):
+        r[...] = Yk
+    for i, row in enumerate((fx, norm_grad, iters, ninner, Delta)):
+        stats_ref[i:i + 1, :] = row
+
+
+def _state_floats(Np: int, Ep: int, d: int, has_anchors: bool) -> int:
+    """Loop-resident f32 values per instance: the hvp's edge terms
+    (dY, s, m) and its temporaries (dZ, dD), ~10 coordinate tuples (Y,
+    grad, the tCG vectors and hvp outputs) and the per-node anchor Hessian
+    blocks."""
+    n = (2 * d + 3) * Ep + 10 * d * Np
+    if has_anchors:
+        n += (d * (d + 1) // 2 + 1) * Np
+    return n
+
+
+def _warps(tile: int, per_inst: int) -> int:
+    """Warps (a power of two in [4, 16]) that keep a thread's share of the
+    block's state within _REGS_PER_THREAD."""
+    need = -(-tile * per_inst // (32 * _REGS_PER_THREAD))
+    return min(16, max(4, _pow2(need, lo=1)))
+
+
+def _choose_block(B: int, Np: int, Ep: int, d: int,
+                  has_anchors: bool) -> tuple[int, int]:
+    """(instances per program, warps): 32 instances while that still gives
+    every SM a block, else 16; warps from the register rule."""
+    tile = _MAX_TILE if -(-B // _MAX_TILE) >= _NUM_SMS else _MIN_DIM
+    return tile, _warps(tile, _state_floats(Np, Ep, d, has_anchors))
+
+
+def _anchor_chunks(ep: EdgeProblem, Np: int, d: int):
+    """Chunked anchor layout: (asel (Np, Cp), apar (8 * RC, Cp), n_chunks).
+
+    Each chunk holds up to RC rows of one node; padding rows have zero masks.
+    """
+    RC = _ANCHOR_CHUNK
+    node = np.argmax(ep.aP, axis=1)
+    chunks = []  # (node, row indices)
+    for u in np.unique(node):
+        rows = np.nonzero(node == u)[0]
+        for s in range(0, len(rows), RC):
+            chunks.append((u, rows[s:s + RC]))
+    n_chunks = len(chunks)
+    Cp = _pow2(n_chunks, lo=1)
+    asel = np.zeros((Np, Cp), np.float32)
+    apar = np.zeros((8 * RC, Cp), np.float32)
+    fields = [ep.apsi_L, ep.apsi_U, ep.aL_mask, ep.aU_mask] + [
+        ep.acenters[:, k] for k in range(d)
+    ]
+    for c, (u, rows) in enumerate(chunks):
+        asel[u, c] = 1.0
+        for i, v in enumerate(fields):
+            apar[i * RC:i * RC + len(rows), c] = v[rows]
+    return asel, apar, n_chunks
 
 
 def solve_tr_pallas(
@@ -542,119 +593,101 @@ def solve_tr_pallas(
     tile: int | None = None,
     interpret: bool = False,
 ):
-    """Run the full batched TR solve in one Pallas kernel.
+    """Run the full batched TR solve in one Pallas kernel (Triton route).
 
-    Y0: (B, N, d) float initial points; dgoal_e: (B, E) or (B, Ep) squared
-    goal distances on the compiled edge set (EdgeProblem.edge_values).
+    Y0: (B, N, d) float initial points; dgoal_e: (B, E) squared goal
+    distances on the compiled edge set (EdgeProblem.edge_values).
+    tile: instances per program (a power of two >= 16); None = the block
+    rule of _choose_block. interpret=True runs the kernel in the
+    Pallas interpreter (tests on a machine without a GPU); otherwise the
+    kernel compiles for the GPU and any other platform is an error.
     Returns dict(Y (B, N, d) f32, cost, gradnorm, iterations, num_inner).
     """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the fused TR kernel compiles only for the GPU (default backend "
+            f"is {jax.default_backend()!r}); use backend='edge' or 'dense'"
+        )
     B, N, d = Y0.shape
-    Ep = ep.Ep
-    Ap = ep.A
-    dN = d * N
+    E = ep.E
+    Np = _pow2(N)
+    Ep = _pow2(E)
+    has_anchors = ep.A > 0
     if maxinner is None:
-        maxinner = dN
+        maxinner = d * N
     if mingradnorm is None:
         mingradnorm = 2e-6
     if Delta_bar is None:
         Delta_bar = 10.0 + d
     if Delta0 is None:
         Delta0 = Delta_bar / 8.0
-    nsp = ep.aPsel.shape[0] if ep.a_nsel else Ap
     if tile is None:
-        # Lane-tile sized to the VMEM footprint: per lane the kernel keeps
-        # ~(4+2d) edge rows, ~2d anchor rows, ~8 dN state vectors, plus the
-        # lane-invariant C/Ct/P blocks; stay within ~1/3 of the ~16 MB
-        # scoped-vmem budget to leave room for Mosaic's own spills.
-        # Wider tiles amortize per-grid-step loop overhead: 1024 lanes runs
-        # the ur10 solve ~19% faster than 128 (round-3 sweep), so start at
-        # the largest tile the batch needs (>= _LANE) and shrink to fit.
-        per_lane = 4 * ((4 + 2 * d) * Ep + 2 * d * Ap + 8 * dN + 64)
-        fixed = 4 * (2 * Ep * N + 2 * nsp * N + 8 * (Ep + Ap))
-        budget = 6 * 1024 * 1024
-        tile = min(2048, max(_LANE, 1 << (max(B, 1) - 1).bit_length()))
-        while tile > 8 and fixed + per_lane * tile > budget:
-            tile //= 2
-        tile = max(tile, 8)
-
+        tile, num_warps = _choose_block(B, Np, Ep, d, has_anchors)
+    elif tile < _MIN_DIM or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two >= 16, got {tile}")
+    else:
+        num_warps = _warps(tile, _state_floats(Np, Ep, d, has_anchors))
     Bp = -(-B // tile) * tile
-    # (B, N, d) -> (dN, Bp)
-    Yl = jnp.transpose(Y0.astype(jnp.float32), (2, 1, 0)).reshape(dN, B)
-    act = jnp.ones((1, B), jnp.float32)
-    dgf = jnp.zeros((B, Ep), jnp.float32).at[:, : dgoal_e.shape[-1]].set(
-        dgoal_e.astype(jnp.float32)
-    ).T
-    if Bp != B:
-        Yl = jnp.pad(Yl, ((0, 0), (0, Bp - B)))
-        act = jnp.pad(act, ((0, 0), (0, Bp - B)))
-        dgf = jnp.pad(dgf, ((0, 0), (0, Bp - B)))
+
+    # (B, N, d) -> d x (Np, Bp), zero-padded
+    Yp = jnp.pad(Y0.astype(jnp.float32), ((0, Bp - B), (0, Np - N), (0, 0)))
+    Ys = [Yp[:, :, k].T for k in range(d)]
+    act = jnp.pad(jnp.ones((1, B), jnp.float32), ((0, 0), (0, Bp - B)))
+    dgf = jnp.pad(dgoal_e[:, :E].astype(jnp.float32),
+                  ((0, Bp - B), (0, Ep - E))).T
+
+    C = np.zeros((Ep, Np), np.float32)
+    C[:E, :N] = ep.C[:E]
+    par = np.zeros((Ep, 8), np.float32)
+    for i, v in enumerate((ep.omega, ep.psi_L, ep.psi_U, ep.L_mask,
+                           ep.U_mask)):
+        par[:E, i] = v[:E]
+
+    n_chunks = 0
+    inputs = [jnp.asarray(C), jnp.asarray(C.T), jnp.asarray(par), dgf]
+    fixed = lambda b: (0, 0)
+    lanes = lambda b: (0, b)
+    in_specs = [
+        pl.BlockSpec((Ep, Np), fixed),
+        pl.BlockSpec((Np, Ep), fixed),
+        pl.BlockSpec((Ep, 8), fixed),
+        pl.BlockSpec((Ep, tile), lanes),
+    ]
+    if has_anchors:
+        asel, apar, n_chunks = _anchor_chunks(ep, Np, d)
+        inputs += [jnp.asarray(asel), jnp.asarray(apar)]
+        in_specs += [pl.BlockSpec(asel.shape, fixed),
+                     pl.BlockSpec(apar.shape, fixed)]
+    inputs += Ys + [act]
+    in_specs += [pl.BlockSpec((Np, tile), lanes)] * d
+    in_specs += [pl.BlockSpec((1, tile), lanes)]
 
     kern = partial(
         _tr_kernel,
-        N=N, d=d, maxiter=int(maxiter), maxinner=int(maxinner),
+        d=d, maxiter=int(maxiter), maxinner=int(maxinner),
         mingradnorm=float(mingradnorm), kappa=float(kappa),
         theta=float(theta), rho_prime=float(rho_prime),
         rho_regularization=float(rho_regularization),
         Delta_bar=float(Delta_bar), Delta0=float(Delta0),
-        mininner=int(mininner), has_anchors=bool(Ap),
-        a_nsel=int(ep.a_nsel), a_R=int(ep.a_R),
+        mininner=int(mininner), n_chunks=n_chunks,
         plateau_every=int(plateau_every), plateau_rtol=float(plateau_rtol),
         plateau_atol=float(plateau_atol), res_tol=float(res_tol),
     )
-    grid = (Bp // tile,)
-    in_specs = [
-        pl.BlockSpec((Ep, N), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((N, Ep), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((Ep, 8), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((Ep, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-    ]
-    inputs = [
-        jnp.asarray(ep.C, jnp.float32),
-        jnp.asarray(ep.C.T, jnp.float32),
-        jnp.asarray(np.pad(_pack_params(ep), ((0, 0), (0, 3))), jnp.float32),
-        dgf,
-    ]
-    if Ap:
-        apar = np.zeros((Ap, 8), np.float64)
-        apar[:, 0] = ep.apsi_L
-        apar[:, 1] = ep.apsi_U
-        apar[:, 2] = ep.aL_mask
-        apar[:, 3] = ep.aU_mask
-        apar[:, 4:4 + d] = ep.acenters[:, :d]
-        P_sel = ep.aPsel if ep.a_nsel else ep.aP
-        in_specs += [
-            pl.BlockSpec((nsp, N), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, nsp), lambda b: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ap, 8), lambda b: (0, 0), memory_space=pltpu.VMEM),
-        ]
-        inputs += [
-            jnp.asarray(P_sel, jnp.float32),
-            jnp.asarray(P_sel.T, jnp.float32),
-            jnp.asarray(apar, jnp.float32),
-        ]
-    in_specs += [
-        pl.BlockSpec((dN, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-    ]
-    inputs += [Yl, act]
-    Yout, stats = pl.pallas_call(
+    *Yout, stats = pl.pallas_call(
         kern,
-        grid=grid,
+        grid=(Bp // tile,),
         in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((dN, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tile), lambda b: (0, b), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((dN, Bp), jnp.float32),
-            jax.ShapeDtypeStruct((8, Bp), jnp.float32),
-        ],
+        out_specs=[pl.BlockSpec((Np, tile), lanes)] * d
+        + [pl.BlockSpec((8, tile), lanes)],
+        out_shape=[jax.ShapeDtypeStruct((Np, Bp), jnp.float32)] * d
+        + [jax.ShapeDtypeStruct((8, Bp), jnp.float32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
+        name="tr_solve",
     )(*inputs)
-    Y = jnp.transpose(Yout.reshape(d, N, Bp)[:, :, :B], (2, 1, 0))
+    Y = jnp.stack([Yk[:N, :B].T for Yk in Yout], axis=-1)
     return {
         "Y": Y,
         "cost": stats[0, :B],

@@ -1,14 +1,14 @@
 """Multi-host distributed entry point (SURVEY.md section 2.6 / section 5).
 
 The reference is single-process (no NCCL/MPI/Gloo anywhere; SURVEY.md
-section 5 "Distributed communication backend"); the TPU-native scale axis is
-the instance batch sharded over every chip of every host. This module owns
+section 5 "Distributed communication backend"); the scale axis here is the
+instance batch sharded over every device of every host. This module owns
 the process-level plumbing:
 
   * `initialize()` - `jax.distributed.initialize` wrapper with environment
-    fallbacks (set by TPU pod runtimes or by the test harness).
+    fallbacks (set by a cluster launcher or by the test harness).
   * `global_batch_mesh()` - 1-D mesh over ALL global devices; the batch
-    axis rides ICI within a slice and DCN across hosts.
+    axis spans NVLink within a host and the network across hosts.
   * `shard_local_batch()` - assemble a globally-sharded array from each
     process's local shard (hosts generate/load their own goals; no
     host-0 scatter bottleneck).
@@ -18,7 +18,7 @@ the process-level plumbing:
 
 Single-process use degrades gracefully: every function works unchanged on
 one process (mesh = local devices), so the same driver script runs from a
-laptop CPU to a multi-host pod.
+laptop CPU to a multi-host GPU cluster.
 """
 
 from __future__ import annotations
@@ -46,9 +46,10 @@ def initialize(
     """Join the multi-process JAX runtime.
 
     Arguments default from the standard environment variables
-    (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID) so pod
+    (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID) so cluster
     launchers and the two-process CPU test configure workers by env alone.
-    On TPU pods with automatic configuration, call with no arguments.
+    With one GPU per process, pass local_device_ids (or set
+    CUDA_VISIBLE_DEVICES) so each process owns its own card.
     No-op when the distributed client is already initialized.
     """
     # Re-entry guard without reaching into jax._src internals: prefer the
@@ -131,7 +132,7 @@ def solve_ik_global(
     T_goal_local: this process's shard of the goal batch, (B_local, ...).
     The solve is data-parallel with zero communication; the metrics are
     computed inside the same jit so XLA lowers the means to cross-host
-    collectives (psum over DCN) instead of host-side gathers.
+    collectives (psums) instead of host-side gathers.
 
     Returns
     -------
@@ -163,8 +164,7 @@ def solve_ik_global(
         # Runs per device shard (shard_map): the Pallas solver kernel has no
         # SPMD partitioning rule, so shard_map - not sharding-annotated jit -
         # is what guarantees each device solves only its own shard. Metric
-        # means become explicit psums over the batch axis (ICI within a
-        # slice, DCN across hosts).
+        # means become explicit psums over the batch axis.
         out = api.solve_ik(structure, Tg, params=params, **kwargs)
         hit = (
             (out["e_pos"] < criterion_pos)

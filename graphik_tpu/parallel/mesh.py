@@ -7,8 +7,8 @@ parallelism over goals x restarts is the only meaningful axis; collectives
 are reductions at the end (success rates, best-of-restart selection).
 
 Multi-host: call `jax.distributed.initialize()` before building the mesh;
-`make_mesh` uses all visible devices and XLA lays the batch axis over
-ICI/DCN automatically.
+`make_mesh` uses all visible devices. The cards of one host are joined all
+to all (NVLink), so the mesh stays 1-D.
 """
 
 from __future__ import annotations
@@ -59,13 +59,7 @@ def solve_ik_sharded(
     silently destroys data-parallel scaling.
     """
     in_sharding = NamedSharding(mesh, P(axis_name))
-
-    local = partial(api.solve_ik, structure, params=params, **kwargs)
-    fn = jax.jit(jax.shard_map(
-        local, mesh=mesh, in_specs=P(axis_name), out_specs=P(axis_name),
-        check_vma=False,  # while_loop carries + Pallas out_shapes predate
-        # the varying-manual-axes checker; classic shard_map semantics.
-    ))
+    fn = _sharded_runner(structure, mesh, params, axis_name, kwargs)
     # shard_map requires the batch axis to divide evenly over the mesh
     # (the previous sharding-annotated jit tolerated ragged shards): pad
     # with copies of goal 0 and slice every output back to the true batch.
@@ -81,6 +75,32 @@ def solve_ik_sharded(
     if Bp != B:
         out = jax.tree.map(lambda a: a[:B], out)
     return out
+
+
+_SHARDED_RUNNERS: dict = {}
+
+
+def _sharded_runner(structure, mesh, params, axis_name, kwargs):
+    """jit(shard_map(solve_ik)) for these arguments, built once: a fresh
+    jit object per call would retrace and recompile every solve."""
+    try:
+        key = (id(structure), mesh, params, axis_name,
+               tuple(sorted(kwargs.items())))
+        hash(key)
+    except TypeError:
+        key = None
+    hit = _SHARDED_RUNNERS.get(key) if key is not None else None
+    if hit is not None and hit[0] is structure:
+        return hit[1]
+    local = partial(api.solve_ik, structure, params=params, **kwargs)
+    fn = jax.jit(jax.shard_map(
+        local, mesh=mesh, in_specs=P(axis_name), out_specs=P(axis_name),
+        check_vma=False,  # while_loop carries + Pallas out_shapes predate
+        # the varying-manual-axes checker; classic shard_map semantics.
+    ))
+    if key is not None:
+        _SHARDED_RUNNERS[key] = (structure, fn)
+    return fn
 
 
 def solve_ik_restarts(
@@ -102,7 +122,8 @@ def solve_ik_restarts(
 
     Returns the selected per-goal result dict plus "restart_index".
     """
-    # TPU: f32 matmuls default to bf16 passes (same scoping as api.solve_ik).
+    # float32 matmuls may run in TF32 unless HIGHEST is asked for (same
+    # scoping as api.solve_ik).
     with jax.default_matmul_precision("highest"):
         return _solve_ik_restarts_impl(
             structure, T_goal, key, n_restarts, params, use_limits, dtype, polish

@@ -1,14 +1,14 @@
 """CIDGIK: convex-iteration SDP relaxation of the distance program, batched.
 
 Reimplements the reference's CIDGIK path (convex_iteration.py:160-319 +
-sdp_snl.py constraint machinery) TPU-first:
+sdp_snl.py constraint machinery) as batched array programs:
 
 * cvxpy/MOSEK interior point -> a batched two-block ADMM over the product
   cone (PSD x box), with the affine projection factored once per instance
   (Cholesky of A A^T) and the cone projection a batched eigh.
 * per-clique chordal decomposition -> the dense union clique (the default
   used by solve_with_cidgik, convex_iteration.py:296-300); N ~ 13-20 dense
-  PSD matrices are trivial on TPU.
+  PSD matrices are trivial batched work.
 * rank-d forcing via the closed-form Fantope projection C = U_{d:} U_{d:}^T
   (convex_iteration.py:43-53), batched.
 
@@ -374,14 +374,14 @@ class CidgikParams:
     feas_tol: float = 1e-4  # primal residual -> FEASIBLE/INFEASIBLE
     # Eigendecomposition backend for the cone/Fantope projections:
     # fixed-sweep Jacobi (ops/jacobi.py) keeps the compiled program tiny -
-    # XLA's iterative eigh inside while x scan x vmap takes >25 min to
-    # compile on TPU. 0 = use jnp.linalg.eigh.
+    # XLA's iterative eigh inside while x scan x vmap compiled far slower.
+    # 0 = use jnp.linalg.eigh.
     eigh_sweeps: int = 8
     # PSD cone projection backend for the per-ADMM-iteration projection:
     # >0 switches from the Jacobi eigendecomposition (~120 sequential
     # scatter-heavy rotation rounds per call) to that many Newton-Schulz
     # matrix-sign iterations (ops/linalg.psd_project_ns) - pure batched
-    # (s, s) matmuls on the MXU. The Fantope projection (once per OUTER
+    # (s, s) matmuls. The Fantope projection (once per OUTER
     # round) needs actual eigenvectors and always uses eigh.
     cone_ns_iters: int = 0
     # Iterative-refinement steps for the affine-projection Cholesky solve.
@@ -403,14 +403,14 @@ class CidgikParams:
 
     @classmethod
     def production(cls, **overrides) -> "CidgikParams":
-        """The tuned serving operating point (round-5 accuracy sweep).
+        """The tuned serving operating point (an f32 accuracy sweep).
 
         rho is the dominant raw-accuracy lever on this problem family:
-        with the row-normalized operator, rho=10 lifts the raw (un-
-        polished) ADMM rate @1cm from 0.57 to 0.80 on dense UR10 (0.53 to
-        0.77 on the 100-sphere table scene) at IDENTICAL per-iteration
-        cost, beating the f64 oracle rate measured at rho=1 (0.758,
-        CIDGIK_SWEEP.json). Past rho~12 the @1cm rate keeps inching up
+        with the row-normalized operator, rho=10 lifted the raw (un-
+        polished) ADMM rate @1cm well above rho=1 on dense UR10 and on the
+        100-sphere table scene at IDENTICAL per-iteration cost, past the
+        f64 oracle rate measured at rho=1 (PARITY.md, f64 CPU). Past
+        rho~12 the @1cm rate keeps inching up
         but @1mm regresses (the rank-forcing cost C/rho gets too weak to
         finish driving the small eigenvalues), so production sits at the
         combined-accuracy optimum. The (1000, 9x500) warm-start schedule
@@ -446,9 +446,9 @@ def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, s0, u0, params):
     Gmm = Gmm + 1e-9 * jnp.trace(Gmm) / Gmm.shape[0] * jnp.eye(
         Gmm.shape[0], dtype=Gmm.dtype
     )
-    # bf16-safe inverse factor: lax.linalg.cholesky lowers to XLA's
-    # internal decomposition whose matmuls run at bf16 on TPU f32,
-    # corrupting the affine projection; spd_inverse_factor uses explicit
+    # Explicit inverse factor: lax.linalg.cholesky's internal matmuls are
+    # outside default_matmul_precision (float32 may run in TF32), which
+    # corrupts the affine projection; spd_inverse_factor uses explicit
     # HIGHEST-precision dots (ops/linalg.py).
     Linv = spd_inverse_factor(Gmm)
     hp = jax.lax.Precision.HIGHEST
@@ -565,7 +565,7 @@ def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, s0, u0, params):
 # and every obstacle inequality (obstacle centers are compile-time
 # constants). Splitting rows into a shared STATIC block and a tiny
 # per-instance DYNAMIC block turns the per-iteration work into
-# shared-weight (m_s, m_s) / (m_s, s^2) matmuls over the batch - MXU
+# shared-weight (m_s, m_s) / (m_s, s^2) matmuls over the batch -
 # shapes - and replaces the per-instance (m, m) Gram factorization with a
 # host-precomputed float64 Cholesky plus an m_d x m_d Schur complement
 # per instance. The vmapped per-instance engine above remains as the
@@ -885,8 +885,8 @@ def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params,
             from graphik_tpu.ops.linalg import psd_project_ns
 
             # unroll=True: broadcast-FMA matmuls fuse across the NS chain
-            # (the standalone batched-matmul ops were dispatch-latency
-            # bound at ~20 us each; see ops/linalg.mm_unrolled)
+            # (the standalone batched-matmul ops were launch-latency
+            # bound; see ops/linalg.mm_unrolled)
             Wp = psd_project_ns(W, iters=params.cone_ns_iters, unroll=True)
         elif params.eigh_sweeps:
             lam, Q = jacobi_eigh(W, sweeps=params.eigh_sweeps)
@@ -1211,7 +1211,7 @@ def solve_cidgik(
     T_base @ fk(q).
 
     engine: "split" (default) runs the static/dynamic split batched ADMM -
-    shared-weight MXU matmuls, host-precomputed static Gram factor, tiny
+    shared-weight matmuls, host-precomputed static Gram factor, tiny
     per-instance Schur complement. "vmap" is the original per-instance
     engine (oracle path).
     """

@@ -1,6 +1,6 @@
 """Sparse (chordal clique-decomposed) CIDGIK.
 
-TPU-first reimplementation of the reference's sparse SDP machinery
+Batched reimplementation of the reference's sparse SDP machinery
 (sdp_snl.py:201-314 per-clique constraint assembly, 661-715 chordal overlap
 equality constraints, 448-488 clique cover; convex_iteration.py sparse
 mode): the free-node graph is chordally completed (utils/chordal.py, MCS-M)
@@ -13,7 +13,7 @@ with distance constraints stamped into the clique containing the edge and
 overlap equality constraints tying shared rows/diagonals across cliques.
 All blocks are padded to the maximum clique size and stacked, so the ADMM
 cone projection is ONE batched eigh over (K, ds, ds) - the decomposition
-maps directly onto the TPU's batched-small-eigh sweet spot instead of the
+maps onto one batched small-matrix program instead of the
 reference's per-clique cvxpy variables.
 
 Where the reference uses a greedy set cover to pick which *augmented*
@@ -415,10 +415,10 @@ def _solve_sdp_admm_blocks(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params,
         Gmm.shape[0], dtype=Gmm.dtype
     )
     # Inverse Cholesky factor applied as matmuls: XLA's cho_solve lowers to
-    # sequential triangular solves on TPU, which dominated the whole sparse
-    # ADMM (10x the dense engine's per-lane iteration cost) - and its
-    # internal matmuls run at bf16 on f32 inputs. spd_inverse_factor is
-    # the bf16-safe matmul path the dense engine uses (ops/linalg.py).
+    # sequential triangular solves, which dominated the whole sparse ADMM,
+    # and its internal matmul precision is outside default_matmul_precision.
+    # spd_inverse_factor is the HIGHEST-precision matmul path the dense
+    # engine uses (ops/linalg.py).
     Linv = spd_inverse_factor(Gmm)
     hp = jax.lax.Precision.HIGHEST
 
@@ -532,14 +532,14 @@ def _fantope_blocks(Z, d, member, eigh_sweeps: int = 8):
 # ---------------------------------------------------------------------------
 # Split (static/dynamic) batched sparse ADMM engine
 #
-# The same decomposition that took the dense engine 14 -> 214 solves/s
+# The same decomposition as the dense engine's split operator
 # (cidgik.py:_build_split_operator): every constraint row except the ~4-8
 # rows touching the GOAL anchors is identical across the batch - identity
 # blocks, overlap equalities, free-free edges, and anchored edges whose
 # anchor is statically positioned (p0/q0/obstacles). Treating the stacked
 # clique blocks as one flattened vector space R^{K ds^2}, the static rows
 # become a shared (m_s, K ds^2) matrix: per-iteration work is batched
-# shared-weight matmuls (MXU shapes) instead of the vmapped per-instance
+# shared-weight matmuls instead of the vmapped per-instance
 # (m, K, ds, ds) einsums above, and the per-instance (m, m) Gram
 # factorization collapses to a host-precomputed float64 Cholesky plus an
 # m_d x m_d Schur complement per instance. The vmapped engine remains as
@@ -771,7 +771,7 @@ def _sparse_split_aux(op: _SparseSplitOperator, anchors_pos, dt):
     Ls_schur = chol_unrolled(S)
     # Explicit Schur INVERSE (once per solve): the in-loop solve is then a
     # single fusable multiply-reduce instead of 2*m_d sequential
-    # substitution steps (~80 us/iteration of pure dispatch latency).
+    # substitution steps (pure launch latency).
     from graphik_tpu.ops.linalg import chol_solve_unrolled as _csu
 
     eye_d = jnp.eye(m_d, dtype=dt)
@@ -783,7 +783,7 @@ def _sparse_split_aux(op: _SparseSplitOperator, anchors_pos, dt):
     # Dense flattened dynamic-row operator D_flat (B, m_d, K*ds*ds): the
     # stamp matrices materialized ONCE so the hot loop runs multiply-
     # reduces in the flat space instead of advanced-index gather/scatter
-    # (which cost ~120 us/iteration in dispatch latency).
+    # (which cost launch latency every iteration).
     flat_n = op.A_flat.shape[1]
     K, ds = op.K_ds
     k_d = jnp.asarray(op.k_d)
@@ -870,13 +870,13 @@ def _solve_sdp_admm_sparse_split(op, aux, C, Z0, t0, U0, params, d, K, ds,
     from graphik_tpu.ops.linalg import psd_project_ns
 
     # The per-iteration ops here are tiny (K*ds^2 ~ a few hundred floats
-    # per instance), so the design goal is FUSABILITY, not flops: dispatch
-    # latency of each standalone batched matmul/gather op (~20-120 us)
-    # dominated the first implementation. Dynamic rows therefore run as
+    # per instance), so the design goal is FUSABILITY, not flops: launch
+    # latency of each standalone batched matmul/gather op dominated the
+    # first implementation. Dynamic rows therefore run as
     # multiply-reduces against the materialized D_flat, the Schur solve is
     # a multiply-reduce against the precomputed inverse, and the NS cone
     # projection uses the unrolled broadcast-FMA matmuls - all pure
-    # elementwise chains XLA fuses (measured 3.4x total).
+    # elementwise chains XLA fuses.
     def gss_inv(r):  # (B, m_s) -> (B, m_s)
         z = jnp.einsum("ij,bj->bi", Linv, r, precision=hp)
         return jnp.einsum("ji,bj->bi", Linv, z, precision=hp)
@@ -1158,7 +1158,7 @@ def solve_cidgik_sparse(
     T_base @ fk(q).
 
     engine: "split" (default) runs the static/dynamic split batched ADMM
-    (shared-weight MXU matmuls over the flattened clique blocks, host
+    (shared-weight matmuls over the flattened clique blocks, host
     float64 static Gram factor, per-instance m_d x m_d Schur complement);
     "vmap" is the original per-instance engine (oracle path).
     """

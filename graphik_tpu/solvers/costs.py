@@ -1,11 +1,11 @@
 """Dense masked EDM-completion costs: f, Euclidean grad, Hessian-vector.
 
-TPU-native replacement for the reference's numba AOT kernels
+Batched replacement for the reference's numba AOT kernels
 (/root/reference/graphik/solvers/costs.py) and the dense numpy closures
 (riemannian_solver.py:95-119, 139-174). Everything is expressed as masked
 (N, N) x (N, d) linear algebra so XLA fuses the elementwise chains into the
-batched matmuls; a fused Pallas kernel backs the same signatures for the
-hot path (graphik_tpu.ops).
+batched matmuls; the edge form (ops/edge.py) and the fused Pallas kernel
+(ops/tr_pallas.py) compute the same cost for the hot path.
 
 Conventions (matching the reference):
   D(Y)   = K(Y Y^T),  K(G) = diag(G) 1^T + 1 diag(G)^T - 2 G  (squared EDM)

@@ -1,6 +1,6 @@
 """Joint-space local solver: batched Levenberg-Marquardt on the pose residual.
 
-TPU-native counterpart of the reference's scipy-SLSQP LocalSolver
+Batched counterpart of the reference's scipy-SLSQP LocalSolver
 (/root/reference/graphik/solvers/joint_angle_solver.py): the cost is the
 body-frame pose log residual e = log(T(q)^-1 T_goal) with the analytic
 Jacobian J_e = inv_left_jacobian(e) Ad(T^-1) J (joint_angle_solver.py:70-81,

@@ -1,6 +1,6 @@
 """Batched Riemannian trust-region solver over the rank-d PSD quotient manifold.
 
-TPU-native reimplementation of the reference's vendored Manopt TrustRegions +
+Reimplementation of the reference's vendored Manopt TrustRegions +
 truncated CG (/root/reference/graphik/solvers/trust_region.py:112-599) and the
 PSDFixedRank quotient manifold (utils/manifolds/fixed_rank_psd_sym.py:23-138):
 
@@ -14,13 +14,14 @@ PSDFixedRank quotient manifold (utils/manifolds/fixed_rank_psd_sym.py:23-138):
   gradient is already horizontal for this cost, matching the reference's
   egrad2rgrad identity (fixed_rank_psd_sym.py:123-124).
 
-Three backends share the algorithm:
-* "pallas" (default): the ENTIRE outer-TR + truncated-CG loop fused into
-  one Pallas TPU kernel over the compiled edge form (ops/tr_pallas.py) -
-  the production hot path (f32; float64 inputs fall back to dense).
+Three backends share the algorithm (resolve_backend picks one):
+* "pallas" (float32 default): the ENTIRE outer-TR + truncated-CG loop fused
+  into one Pallas kernel on the Triton route over the compiled edge form
+  (ops/tr_pallas.py) - the production hot path; GPU only.
 * "dense"/"edge": per-instance `lax.while_loop`s vmapped over the batch
-  (converged lanes freeze their state so radius/rho bookkeeping stays
-  exact per instance, SURVEY.md section 7.3) - the float64 oracle paths.
+  (converged instances freeze their state so radius/rho bookkeeping stays
+  exact per instance, SURVEY.md section 7.3) - "dense" is the float64
+  default and the oracle path; both run on any platform.
 """
 
 from __future__ import annotations
@@ -89,16 +90,17 @@ class TRParams:
     # polish doesn't provide. 0 disables (reference-faithful: the reference
     # only stops on gradnorm, trust_region.py:413-422).
     res_tol: float = 0.0
-    # Pallas kernel lane-tile override (instances per grid step); None =
-    # auto-size from the VMEM footprint (ops/tr_pallas.solve_tr_pallas).
+    # Fused-kernel block override (instances per Triton program, a power of
+    # two >= 16); None = the block rule in ops/tr_pallas._choose_block.
     tile: Optional[int] = None
-    # Cost backend: "dense" = masked (N, N) linear algebra (solvers/costs.py);
-    # "edge" = compiled incidence-matrix edge list (ops/edge.py) - same math,
-    # E-compressed data movement (the reference's numba edge-kernel analogue);
-    # "pallas" = the full TR+tCG loop fused into one Pallas TPU kernel
-    # (ops/tr_pallas.py) - the production hot path (f32; interpret-mode
-    # emulation off-TPU).
-    backend: str = "pallas"
+    # Solver backend: "dense" = masked (N, N) linear algebra
+    # (solvers/costs.py); "edge" = compiled incidence-matrix edge list
+    # (ops/edge.py) - same math, E-compressed data movement (the
+    # reference's numba edge-kernel analogue); "pallas" = the full TR+tCG
+    # loop fused into one Pallas kernel on the Triton route
+    # (ops/tr_pallas.py), float32 on the GPU only. None = by dtype:
+    # "pallas" for float32, "dense" otherwise (resolve_backend).
+    backend: Optional[str] = None
 
     @classmethod
     def production(cls, **overrides) -> "TRParams":
@@ -226,6 +228,22 @@ def manifold_proj(Y, Z):
         vec_om = spd_solve_unrolled(A, C.reshape(C.shape[:-2] + (d * d,)))
         Om = vec_om.reshape(C.shape)
     return Z - Y @ Om
+
+
+def resolve_backend(backend: Optional[str], dtype) -> str:
+    """The TR backend for `dtype`: TRParams.backend, or the dtype default
+    (float32 -> the fused "pallas" kernel, anything else -> "dense")."""
+    dtype = jnp.dtype(dtype)
+    if backend is None:
+        return "pallas" if dtype == jnp.float32 else "dense"
+    if backend not in ("dense", "edge", "pallas"):
+        raise ValueError(f"unknown TR backend {backend!r}")
+    if backend == "pallas" and dtype != jnp.float32:
+        raise ValueError(
+            f"backend='pallas' is float32 only, got {dtype}; use 'dense' "
+            "or 'edge' (or backend=None) for other dtypes"
+        )
+    return backend
 
 
 def _inner(a, b):
@@ -532,12 +550,7 @@ def solve(
     batch = Y0.shape[:-2]
     D_goal = jnp.broadcast_to(jnp.asarray(D_goal, dtype=dt), batch + (N, N))
 
-    backend = params.backend
-    if backend == "pallas" and dt == jnp.float64:
-        # The fused kernel is float32 (TPU vector registers); float64 runs
-        # (CPU parity/validation lanes) take the dense XLA path instead.
-        backend = "dense"
-
+    backend = resolve_backend(params.backend, dt)
     if backend == "pallas":
         from graphik_tpu.ops import edge as edge_ops
         from graphik_tpu.ops.tr_pallas import solve_tr_pallas
@@ -565,7 +578,6 @@ def solve(
             plateau_atol=params.plateau_atol,
             res_tol=params.res_tol,
             tile=params.tile,
-            interpret=jax.default_backend() != "tpu",
         )
         return {
             k: v.reshape(batch + v.shape[1:]).astype(dt)
@@ -821,8 +833,14 @@ def solve_cg(
     return fn(Y0, D_goal)
 
 
-def generate_initialization(lb, ub, omega, dim, key=None, eigh_sweeps=None,
-                            method: str = "auto", rank: int = 8,
+# MDS init used by the solver entry points (api, parallel.mesh): cuSOLVER
+# eigh prepared ur10 faster than the subspace iteration on the H100, and
+# compiled far faster (PERF.md, "Init decision").
+DEFAULT_INIT = "eigh"
+
+
+def generate_initialization(lb, ub, omega, dim, key=None, eigh_sweeps: int = 0,
+                            method: str = DEFAULT_INIT, rank: int = 8,
                             subspace_iters: int = 8):
     """Deterministic (or sampled) MDS initialization from smoothed bounds.
 
@@ -830,21 +848,15 @@ def generate_initialization(lb, ub, omega, dim, key=None, eigh_sweeps=None,
     (riemannian_solver.py:67-75): D = (lb + 0.9 (ub - lb))^2 -> Gram -> MDS
     -> linear projection onto R^dim along dominant edge-scatter directions.
 
-    method: "auto" picks "subspace" on TPU f32 and "eigh" elsewhere.
+    method:
+      "eigh": full decomposition, exact reference semantics.
       "subspace": rank-`rank` orthogonal-iteration MDS factor + dominant
       edge-scatter directions by the same iteration (ops/subspace.py) -
-      ~10 rounds of batched matmuls instead of ~120 sequential Jacobi
-      rotation rounds; the init stage cost drops below the solve's.
-      "eigh": full decomposition, exact reference semantics.
-    eigh_sweeps (eigh method): None = auto (fixed-sweep Jacobi on TPU f32
-    where XLA's iterative eigh is slow for small batched matrices; exact
-    eigh elsewhere); 0 = exact; >0 = that many Jacobi sweeps.
+      ~10 rounds of batched matmuls instead of an eigendecomposition.
+    eigh_sweeps ("eigh" only): 0 = exact `eigh`; >0 = that many fixed
+    Jacobi sweeps (ops/jacobi.py).
     """
     D_rand = dgp.sample_distance_matrix(lb, ub, key=key)
-    on_tpu_f32 = (jax.default_backend() == "tpu"
-                  and jnp.asarray(lb).dtype == jnp.float32)
-    if method == "auto":
-        method = "subspace" if on_tpu_f32 else "eigh"
     G = dgp.gram_from_distance_matrix(D_rand)
     if method == "subspace":
         from graphik_tpu.ops.subspace import factor_psd_topk
@@ -853,7 +865,7 @@ def generate_initialization(lb, ub, omega, dim, key=None, eigh_sweeps=None,
         X = factor_psd_topk(G, rank, subspace_iters)
         return dgp.linear_projection(X, omega, dim,
                                      subspace_iters=subspace_iters)
-    if eigh_sweeps is None:
-        eigh_sweeps = 8 if on_tpu_f32 else 0
+    if method != "eigh":
+        raise ValueError(f"unknown init method {method!r}")
     X = dgp.mds(G, eps=1e-8, eigh_sweeps=eigh_sweeps)
     return dgp.linear_projection(X, omega, dim, eigh_sweeps=eigh_sweeps)

@@ -1,14 +1,17 @@
-"""Persistent-compilation-cache hygiene.
+"""Where JAX keeps its persistent compilation cache for this repository.
 
-XLA:CPU persists AOT-compiled host code into the jax compilation cache.
-If the VM migrates to a host with a different ISA (observed in this
-sandbox: avx512/amx feature sets changed mid-session), loading a cached
-entry emits only a warning ("could lead to execution errors such as
-SIGILL") and then actually segfaults at run time. `ensure_cache_dir`
-stamps the cache directory with the host's CPU feature signature and
-wipes it in place when the signature changes, so every consumer
-(tests/conftest.py, bench.py, tools/) gets a cache that is always valid
-for the machine it runs on.
+If JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and that
+directory is the only cache: nothing here sets another one. Otherwise the
+cache lives at one fixed path inside the checkout, `<repo>/.jax_cache`
+(listed in .gitignore) - the directory is part of the cache key, so it
+must not move between runs.
+
+XLA:CPU persists AOT-compiled host code into the cache. If the machine
+changes to a host with a different ISA, loading such an entry emits only
+a warning ("could lead to execution errors such as SIGILL") and then
+crashes. `ensure_cache_dir` stamps the directory this module owns with the
+host's CPU feature signature and wipes it in place when the signature
+changes; a directory named by JAX_COMPILATION_CACHE_DIR is never touched.
 """
 
 from __future__ import annotations
@@ -17,7 +20,11 @@ import hashlib
 import os
 import shutil
 
-DEFAULT_DIR = "/tmp/graphik_tpu_jax_cache"
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 _MARKER = ".host_cpu_signature"
 
 
@@ -78,3 +85,24 @@ def ensure_cache_dir(path: str = DEFAULT_DIR) -> str:
         # subdirectory (itself marker-stamped) and leave the rest alone.
         return _stamp(os.path.join(path, f"by-isa-{sig[:12]}"), sig)
     return _stamp(path, sig)
+
+
+def cache_dir() -> str:
+    """The compilation-cache directory in use: JAX_COMPILATION_CACHE_DIR if
+    set, else the ISA-stamped fixed directory in the checkout."""
+    return os.environ.get(ENV_VAR) or ensure_cache_dir(DEFAULT_DIR)
+
+
+def enable_persistent_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    Sets the directory only when JAX_COMPILATION_CACHE_DIR is unset (JAX
+    already reads the variable itself)."""
+    import jax
+
+    path = cache_dir()
+    if not os.environ.get(ENV_VAR):
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    return path

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing; its closest mechanisms are warm-started
 cvxpy problems and caller-supplied Y_init (reference sdp_snl.py:741-760,
-riemannian_solver.py:199-200). For fleet-scale sweeps on TPU the useful
+riemannian_solver.py:199-200). For fleet-scale sweeps on accelerators the useful
 equivalent is: persist the sweep cursor (seed counter), accumulated metrics,
 and optionally the last solver-state pytree, so an interrupted sweep resumes
 at the next batch instead of re-solving from goal zero.

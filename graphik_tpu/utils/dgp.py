@@ -94,7 +94,7 @@ def linear_projection(P, F, dim, eigh_sweeps=0, subspace_iters=0):
     `F` is a dense (N, N) nonnegative mask (static or batched).
     subspace_iters > 0 extracts the dominant subspace by orthogonal
     iteration (ops/subspace.topk_eigh) instead of a full eigendecomposition
-    - the init-path fast path on TPU.
+    - batched matmuls instead of an eigendecomposition.
     """
     P = jnp.asarray(P)
     F = jnp.asarray(F)
@@ -136,8 +136,17 @@ def sample_distance_matrix(lb, ub, key=None, frac=0.9):
 # ---------------------------------------------------------------------------
 
 def _minplus(A, B):
-    """Min-plus (tropical) matrix product: C_ij = min_k A_ik + B_kj."""
-    return jnp.min(A[..., :, :, None] + B[..., None, :, :], axis=-2)
+    """Min-plus (tropical) matrix product: C_ij = min_k A_ik + B_kj.
+
+    Unrolled over k as (..., N, N) elementwise minima: the equivalent
+    reduction over a (..., N, N, N) broadcast lets XLA:GPU pick a Triton
+    block-level fusion whose (32, 16, 16) tile asks for more shared memory
+    than an H100 block has (262144 > 232448 bytes) at batch 8192.
+    """
+    C = A[..., :, 0:1] + B[..., 0:1, :]
+    for k in range(1, A.shape[-1]):
+        C = jnp.minimum(C, A[..., :, k:k + 1] + B[..., k:k + 1, :])
+    return C
 
 
 def _minplus_closure(A, n_iter):

@@ -247,7 +247,7 @@ def make_scene(model, q=None, mesh_root=None, with_robot=True,
                edge_radius=0.005):
     """Assemble the full meshed robot scene as triangle-mesh groups.
 
-    The TPU-framework equivalent of the reference's pyrender scene builder
+    This framework's equivalent of the reference's pyrender scene builder
     (urdf_visualization.py:9-60 `make_scene`): URDF link visual meshes
     posed at configuration q, axis-triad frames and marker balls at every
     joint frame (the reference instances frame.dae / redball.dae,

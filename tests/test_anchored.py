@@ -148,7 +148,7 @@ def test_edge_backend_matches_dense_anchored(scene):
     np.testing.assert_allclose(np.asarray(h_e), np.asarray(h_d), rtol=1e-10)
 
 
-def test_pallas_kernel_anchored_parity(scene):
+def test_pallas_kernel_anchored_parity(scene, interpret_kernel):
     """One TR step of the fused kernel with anchors matches the dense path."""
     from graphik_tpu.solvers import riemannian
 
@@ -182,7 +182,7 @@ def test_pallas_kernel_anchored_parity(scene):
     )
 
 
-def test_end_to_end_obstacle_solve(scene):
+def test_end_to_end_obstacle_solve(scene, interpret_kernel):
     """Full pipeline with the reduction: solutions avoid the obstacles."""
     T_goal, _ = api.random_goals(scene, jax.random.PRNGKey(3), (8,))
     out = api.solve_ik(
@@ -201,7 +201,7 @@ def test_end_to_end_obstacle_solve(scene):
         assert (d[ok] >= radius - 1e-3).all()
 
 
-def test_restart_solver_with_obstacles(scene):
+def test_restart_solver_with_obstacles(scene, interpret_kernel):
     from graphik_tpu.parallel.mesh import make_restart_solver
 
     solver = make_restart_solver(

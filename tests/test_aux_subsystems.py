@@ -38,6 +38,25 @@ def test_device_trace_noop():
     assert x == 1
 
 
+def test_device_trace_writes_trace(tmp_path):
+    with profiling.device_trace(str(tmp_path)):
+        profiling.fence(jnp.arange(4.0) * 2.0)
+    assert list(tmp_path.rglob("*.xplane.pb"))
+
+
+def test_device_trace_raises_when_profiler_fails(tmp_path, monkeypatch):
+    import jax
+    import pytest
+
+    def broken(log_dir):
+        raise RuntimeError("profiler unavailable")
+
+    monkeypatch.setattr(jax.profiler, "start_trace", broken)
+    with pytest.raises(RuntimeError, match="profiler unavailable"):
+        with profiling.device_trace(str(tmp_path)):
+            pass
+
+
 def test_checkpoint_roundtrip(tmp_path):
     path = os.path.join(tmp_path, "ck", "sweep.npz")
     state = {

@@ -5,7 +5,7 @@ activates the obstacle/limit inequality LMIs
 (/root/reference/graphik/solvers/convex_iteration.py:279-319, constraint
 builders /root/reference/graphik/solvers/sdp_snl.py:356-398), and its
 example solves UR10 over the table environment. These tests prove the
-TPU ADMM path end-to-end: the obstacle inequalities enter the compiled
+f32 ADMM path end-to-end: the obstacle inequalities enter the compiled
 constraint tables, the solve succeeds on certified-feasible goals, and the
 returned configurations CLEAR the obstacles.
 """
@@ -129,7 +129,7 @@ class TestObstacleSolve:
 
     def test_ns_cone_projection_matches(self, comp_obs, feasible_goals,
                                         ur10_obs):
-        """Newton-Schulz cone projection (the TPU fast path) lands the same
+        """Newton-Schulz cone projection (the production fast path) lands the same
         basins as the Jacobi-eigh projection on the obstacle scene."""
         out = cidgik.solve_cidgik(
             comp_obs, feasible_goals,

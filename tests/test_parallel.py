@@ -59,9 +59,9 @@ def test_sharded_solve_output_is_sharded(ur10, goals):
     assert len(shard_devs) == 8
 
 
-def test_sharded_pallas_f32_path(ur10, goals):
-    """The fused-kernel (interpret) path compiles and runs under GSPMD
-    sharding — validates what the TPU multi-chip path lowers through."""
+def test_sharded_pallas_f32_path(ur10, goals, interpret_kernel):
+    """The fused-kernel (interpret) path runs under shard_map: one kernel
+    call per device shard, the structure the multi-GPU path lowers to."""
     T_goal, _ = goals
     m = fleet.make_mesh()
     out = fleet.solve_ik_sharded(
@@ -71,6 +71,22 @@ def test_sharded_pallas_f32_path(ur10, goals):
     )
     assert out["q"].shape == (16, 6)
     assert np.isfinite(np.asarray(out["e_pos"])).all()
+
+
+def test_sharded_runner_is_built_once(ur10, goals):
+    """Repeated sharded solves with the same arguments reuse one jitted
+    program instead of recompiling every call."""
+    T_goal, _ = goals
+    m = fleet.make_mesh()
+    params = TRParams(maxiter=3)
+    fleet.solve_ik_sharded(ur10, T_goal, m, params=params)
+    n = len(fleet._SHARDED_RUNNERS)
+    key = next(k for k, v in fleet._SHARDED_RUNNERS.items()
+               if v[0] is ur10 and k[2] == params)
+    fn = fleet._SHARDED_RUNNERS[key][1]
+    fleet.solve_ik_sharded(ur10, T_goal, m, params=params)
+    assert len(fleet._SHARDED_RUNNERS) == n
+    assert fleet._SHARDED_RUNNERS[key][1] is fn
 
 
 def test_restarts_never_worse_than_single(ur10, goals):

@@ -204,7 +204,7 @@ def test_default_params_reference_faithful():
     """Library defaults must match the reference's stopping semantics
     (gradnorm/maxiter only; trust_region.py:413-422): no plateau stop, no
     residual early-stop. The tuned serving knobs live in the explicit
-    TRParams.production()/CGParams.production() presets (VERDICT r4 #8)."""
+    TRParams.production()/CGParams.production() presets."""
     from graphik_tpu.solvers.riemannian import CGParams, TRParams
 
     for d in (TRParams(), CGParams()):
@@ -214,3 +214,31 @@ def test_default_params_reference_faithful():
     assert CGParams.production().plateau_every == 16
     # overrides pass through
     assert TRParams.production(maxiter=7).maxiter == 7
+
+
+@pytest.mark.parametrize(
+    "backend, dtype, expect",
+    [
+        (None, "float32", "pallas"),
+        (None, "float64", "dense"),
+        ("edge", "float32", "edge"),
+        ("dense", "float32", "dense"),
+        ("edge", "float64", "edge"),
+        ("pallas", "float32", "pallas"),
+    ],
+)
+def test_resolve_backend(backend, dtype, expect):
+    """The TR backend comes from TRParams.backend or the dtype - never from
+    the platform."""
+    from graphik_tpu.solvers.riemannian import resolve_backend
+
+    assert resolve_backend(backend, dtype) == expect
+
+
+@pytest.mark.parametrize("backend, dtype", [("pallas", "float64"),
+                                            ("cuda", "float32")])
+def test_resolve_backend_rejects(backend, dtype):
+    from graphik_tpu.solvers.riemannian import resolve_backend
+
+    with pytest.raises(ValueError):
+        resolve_backend(backend, dtype)

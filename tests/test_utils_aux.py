@@ -275,3 +275,32 @@ class TestCacheDir:
         assert os.path.exists(os.path.join(got, cache._MARKER))
         # second call resolves to the same stamped subdir
         assert cache.ensure_cache_dir(str(p)) == got
+
+    def test_env_var_is_the_only_cache(self, tmp_path, monkeypatch):
+        """With JAX_COMPILATION_CACHE_DIR set, that directory is used as
+        is: not stamped, not redirected, and no other directory is made."""
+        from graphik_tpu.utils import cache
+
+        env = tmp_path / "from_env"
+        monkeypatch.setenv(cache.ENV_VAR, str(env))
+        monkeypatch.setattr(cache, "DEFAULT_DIR", str(tmp_path / "default"))
+        assert cache.cache_dir() == str(env)
+        assert not env.exists()
+        assert not (tmp_path / "default").exists()
+
+    def test_default_is_fixed_in_checkout(self, tmp_path, monkeypatch):
+        """Without the variable, the cache is one fixed directory inside
+        the checkout that .gitignore lists, stable across calls."""
+        import os
+
+        from graphik_tpu.utils import cache
+
+        monkeypatch.delenv(cache.ENV_VAR, raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cache.DEFAULT_DIR == os.path.join(repo, ".jax_cache")
+        with open(os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+        monkeypatch.setattr(cache, "DEFAULT_DIR", str(tmp_path / "c"))
+        first = cache.cache_dir()
+        assert first == str(tmp_path / "c")
+        assert cache.cache_dir() == first

@@ -1,4 +1,4 @@
-"""Sweep CIDGIK ADMM/outer budgets on TPU: final-accuracy vs throughput.
+"""Sweep CIDGIK ADMM/outer budgets on the GPU: final-accuracy vs throughput.
 
 The GN polish recovers mm accuracy from basin-level ADMM output, so the
 question is how small the ADMM budget can get before the basin quality
@@ -18,10 +18,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from graphik_tpu.utils.cache import ensure_cache_dir
-    jax.config.update("jax_compilation_cache_dir", ensure_cache_dir())
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from graphik_tpu.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from graphik_tpu import api
     from graphik_tpu.robots import library

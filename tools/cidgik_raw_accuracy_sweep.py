@@ -1,10 +1,8 @@
-"""Sweep the raw (un-polished) CIDGIK ADMM accuracy levers on TPU.
+"""Sweep the raw (un-polished) CIDGIK ADMM accuracy levers on the GPU.
 
-VERDICT r4 #2: the f32 ADMM alone solves ~0.58 @1cm on ur10 dense vs the
-f64 oracle's 0.758 (and 0.40 vs 0.81 on the table scene); the production
-success leans on the GN polish. With the fused engines at ~1040 (dense) /
-~458 (table) solves/s there is ~6x iteration headroom over the 150/s bar
-to spend on raw accuracy. Levers (VERDICT suggestions + own):
+The f32 ADMM alone solved fewer goals @1cm than the f64 oracle (PARITY.md)
+on ur10 dense and on the table scene; the production success leans on the
+GN polish. Levers:
 
   * more ADMM iterations / outer rounds (tighter SDP solves)
   * more Newton-Schulz iterations (the sign iteration is least accurate
@@ -29,10 +27,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from graphik_tpu.utils.cache import ensure_cache_dir
-    jax.config.update("jax_compilation_cache_dir", ensure_cache_dir())
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from graphik_tpu.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from graphik_tpu import api
     from graphik_tpu.robots import library

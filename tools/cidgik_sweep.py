@@ -1,4 +1,4 @@
-"""CIDGIK success-rate sweep (VERDICT item 6: measure, then fix).
+"""CIDGIK success-rate sweep (f64 CPU oracle).
 
 Runs >=256-goal sweeps of dense + sparse CIDGIK on UR10 and LWA4D (CPU
 f64, batched) and records success rates at the reference criterion
@@ -37,10 +37,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    from graphik_tpu.utils.cache import ensure_cache_dir
-    jax.config.update("jax_compilation_cache_dir", ensure_cache_dir())
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from graphik_tpu.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     import numpy as np
     import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Multi-host worker / demo driver for parallel/distributed.py.
 
-Run one copy per process (pod launchers do this; tests/test_distributed.py
-spawns two over 127.0.0.1). Env contract:
+Run one copy per process (a cluster launcher does this;
+tests/test_distributed.py spawns two over 127.0.0.1). Env contract:
 
   JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
       standard jax.distributed configuration; leave unset to run
@@ -30,10 +30,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax
 
 jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS", "cpu"))
-from graphik_tpu.utils.cache import ensure_cache_dir
-jax.config.update("jax_compilation_cache_dir", ensure_cache_dir())
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+from graphik_tpu.utils.cache import enable_persistent_cache
+
+enable_persistent_cache()
 
 import numpy as np
 import jax.numpy as jnp
@@ -61,8 +60,11 @@ def main():
     T_local = np.asarray(T_goal)[pid * per:(pid + 1) * per]
 
     mesh = distributed.global_batch_mesh()
+    # The XLA edge backend runs on any platform (the fused kernel is
+    # GPU-only, and these workers default to the CPU).
+    params = TRParams(maxiter=60, backend="edge")
     out_local, metrics = distributed.solve_ik_global(
-        ps, T_local, mesh=mesh, params=TRParams(maxiter=60),
+        ps, T_local, mesh=mesh, params=params,
     )
 
     record = {
@@ -79,7 +81,7 @@ def main():
         t0 = time.perf_counter()
         for _ in range(reps):
             out_local, metrics = distributed.solve_ik_global(
-                ps, T_local, mesh=mesh, params=TRParams(maxiter=60),
+                ps, T_local, mesh=mesh, params=params,
             )
         jax.block_until_ready(out_local["q"])
         wall = time.perf_counter() - t0

@@ -22,10 +22,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from graphik_tpu.utils.cache import ensure_cache_dir
-    jax.config.update("jax_compilation_cache_dir", ensure_cache_dir())
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+    from graphik_tpu.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from graphik_tpu import api
     from graphik_tpu.robots.library import load_ur10

@@ -56,10 +56,10 @@ def main():
     if bench:
         lines += [
             "",
-            "## TPU f32 production pipeline vs denominator "
+            "## GPU f32 production pipeline vs denominator "
             "(baseline criterion)",
             "",
-            "| config | TPU success (95% CI) | denominator | ratio | solves/s/chip |",
+            "| config | GPU success (95% CI) | denominator | ratio | solves/s/chip |",
             "|---|---|---|---|---|",
         ]
         import sys as _sys
@@ -113,9 +113,9 @@ def main():
     if cid_cfgs:
         lines += [
             "",
-            "## CIDGIK on TPU f32 (ADMM + GN polish, the production pipeline)",
+            "## CIDGIK on GPU f32 (ADMM + GN polish, the production pipeline)",
             "",
-            "@1mm is pose-only (round-3-comparable); \"+feas\" additionally "
+            "@1mm is pose-only; \"+feas\" additionally "
             "demands limit/obstacle feasibility of the polished q.",
             "",
             "| config | raw ADMM @1cm | polished @1cm | @1mm | @1mm+feas | median eig-sum | solves/s |",

@@ -1,4 +1,4 @@
-"""Tune the feasibility-aware residual stop (TRParams.res_tol) on TPU.
+"""Tune the feasibility-aware residual stop (TRParams.res_tol) on the GPU.
 
 For each (res_tol, maxiter) candidate: solve a 4096 batch of UR10 goals
 through the production pipeline (fused Pallas TR + GN polish), report
@@ -15,10 +15,9 @@ sys.path.insert(0, "/root/repo")
 import numpy as np
 import jax
 
-from graphik_tpu.utils.cache import ensure_cache_dir
-jax.config.update("jax_compilation_cache_dir", ensure_cache_dir())
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
+from graphik_tpu.utils.cache import enable_persistent_cache
+
+enable_persistent_cache()
 
 from graphik_tpu import api
 from graphik_tpu.robots import library

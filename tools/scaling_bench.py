@@ -1,12 +1,12 @@
-"""Multi-host scaling-efficiency harness (CPU proxy for the pod recipe).
+"""Multi-process scaling-efficiency harness - CPU ONLY.
 
 Measures global IK throughput at 1 vs N worker processes, each process
 playing the role of one HOST: pinned to its own CPU core (taskset) with
-one virtual XLA device, joined into one `jax.distributed` runtime over
-127.0.0.1. This is the same launch contract a real TPU pod uses (one
-process per host, standard JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-JAX_PROCESS_ID env) - on a pod, drop the taskset pinning and the
-XLA_FLAGS override and the identical worker binary scales over ICI/DCN.
+one virtual XLA CPU device, joined into one `jax.distributed` runtime over
+127.0.0.1 with the standard JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+JAX_PROCESS_ID launch contract. Every worker is forced onto the CPU
+(JAX_PLATFORMS=cpu), so it never competes for a GPU; the multi-GPU path is
+one process driving all cards of a host (`chip_smoke.py --four`).
 
 The workload is embarrassingly parallel (goals shard over the global
 mesh; the only collectives are the metric psums), so scaling efficiency
